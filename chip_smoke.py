@@ -5,15 +5,28 @@
 
 Phases, one line each:
   env      CUDA version, card name and power limit;
-  build    nvcc builds both Myers kernels from taxtk_torch/csrc for sm_90a;
-  kernels  each kernel against its plain PyTorch version on the card and
-           against the port's host C++ Myers, at main-path shapes, on the
-           one-off pool and on the shared pool cache, with CUDA-event
+  build    nvcc builds the four kernels from taxtk_torch/csrc for sm_90a
+           (both Myers kernels, both protein kernels), one process each;
+  kernels  each Myers kernel against its plain PyTorch version on the card
+           and against the port's host C++ Myers, at main-path shapes, on
+           the one-off pool and on the shared pool cache, with CUDA-event
            times;
   engine   the taxator CLI (nucleotide RPA) on a 300-contig workload of
            1-20 kbp contigs, once with the default myers-cuda backend and
            once with --dna-backend native; the GFF3 outputs must be
-           byte-identical and both kernels must have launched.
+           byte-identical and both Myers kernels must have launched;
+  protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
+           against their plain version, element for element, and their
+           mutual scores against the host C++ NW, at main-path shapes on
+           both pool layouts, with CUDA-event times;
+  golden   every protein pair of both SeqAn golden corpora through both
+           protein kernels (v6 where its 16-bit domain holds);
+  protein engine
+           taxator -b protein -l on the 2000-ORF protein workload with
+           wavefront-cuda, with --protein-backend wavefront (the plain
+           version) and with TAXTK_PROTEIN_SWAR=1: GFF3s and logs
+           byte-identical, both protein kernels launched; then the GFF3
+           through the port's binner.
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -39,6 +52,15 @@ sys.path.insert(0, ROOT)
 
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 OPS_PER_WORD_CHAR = 20  # essential Myers ops per 32-cell word per char
+# essential INT32-pipe ops per protein DP cell after fusion: one add
+# (diagonal + substitution), one add-max (max(left, up) + gap, Hopper's
+# VIADDMAX), one max with the diagonal, three compares (diagonal wins,
+# left >= up, match), two selects of the stats and one add of both stat
+# increments (IADD3).  The table load issues on the load/store unit and
+# is not counted.
+OPS_PER_CELL = 9
+KERNEL_SOURCES = ["myers_short", "myers_systolic", "protein_wavefront",
+                  "protein_swar"]
 INT32_LANES = 132 * 64  # H100 SXM: SMs x INT32 lanes per SM per clock
 
 
@@ -149,7 +171,7 @@ def phase_build():
     from taxtk_torch.native import faidx, replay
 
     t0 = time.time()
-    cuda_build.build(["myers_short", "myers_systolic"])
+    cuda_build.build(KERNEL_SOURCES)
     secs = time.time() - t0
     # the host C++ libraries (Myers, FASTA fetch, RPA replay) build with
     # g++ at first use too; build them here so no engine run pays for it
@@ -158,26 +180,31 @@ def phase_build():
         fail("g++ could not build the host C++ libraries")
     host_secs = time.time() - t0
     regs = {}
-    for name in ("myers_short", "myers_systolic"):
+    for name in KERNEL_SOURCES:
         # ptxas -v: "Compiling entry function '..._kernelILi64ELi2EE...'"
-        # (myers_short<K, BITS>; myers_systolic<BITS> at KC = 32), then
-        # the spill line, then "Used N registers"
+        # (myers_short<K, BITS>; myers_systolic<BITS> at KC = 32; the
+        # protein kernels are not templates), then the spill line, then
+        # "Used N registers"
         key = None
         for ln in cuda_build.ptxas_report(name).splitlines():
+            if "Compiling entry function" not in ln:
+                if key and "spill stores" in ln:
+                    regs[key]["spill_bytes"] = int(
+                        re.search(r"(\d+) bytes spill stores", ln).group(1))
+                elif key and "registers" in ln:
+                    regs[key]["registers"] = int(
+                        re.search(r"Used (\d+) registers", ln).group(1))
+                continue
             t = re.search(r"kernelI((?:Li\d+E)+)E", ln)
-            if "Compiling entry function" in ln and t:
+            key = name
+            if t:
                 nums = re.findall(r"Li(\d+)E", t.group(1))
                 names = ("K", "bits") if len(nums) == 2 else ("bits",)
                 key = name + "<" + ",".join(
                     f"{k}={v}" for k, v in zip(names, nums)) + ">"
-                regs[key] = {}
-            elif key and "spill stores" in ln:
-                regs[key]["spill_bytes"] = int(
-                    re.search(r"(\d+) bytes spill stores", ln).group(1))
-            elif key and "registers" in ln:
-                regs[key]["registers"] = int(
-                    re.search(r"Used (\d+) registers", ln).group(1))
-    print(f"build: both kernels in {secs:.1f}s (sm_90a), host C++ in "
+            regs[key] = {}
+    print(f"build: {len(KERNEL_SOURCES)} kernels in {secs:.1f}s (sm_90a), "
+          f"host C++ in "
           f"{host_secs:.1f}s; "
           f"registers {json.dumps(regs)}", flush=True)
     return regs
@@ -259,10 +286,13 @@ def phase_kernels(int_rate, long_shapes=((64, 25_000), (16, 50_000),
 
 def run_cli(argv, aln_path):
     """taxtk_torch.cli.taxator.main in this process (what
-    `python -m taxtk_torch.cli.taxator` runs), stdin from aln_path.
-    Returns (gff3, seconds, aligner stats from --stats)."""
+    `python -m taxtk_torch.cli.taxator` runs), stdin from aln_path, on a
+    cold shared pool cache, so the pool stats and the time are this run's
+    own.  Returns (gff3, seconds, aligner stats from --stats)."""
     from taxtk_torch.cli import taxator
+    from taxtk_torch.ops.seqpool import reset_shared_pools
 
+    reset_shared_pools()
     out, err = io.StringIO(), io.StringIO()
     with open(aln_path) as stdin:
         saved, sys.stdin = sys.stdin, stdin
@@ -324,11 +354,277 @@ def phase_engine(n_contigs=300):
     return launches
 
 
+def protein_bound(al, bl, int_rate):
+    """Least time (ms) for the protein DP of these pairs, and what bounds
+    it: OPS_PER_CELL INT32 ops per cell of each pair's own alen x blen
+    over the INT32 issue rate, against the bytes moved once (the codes of
+    both sides, four int32 of per-pair input, the int32 [3, B] result)
+    over the memory rate.  v5 and v6 do the same work."""
+    al = np.asarray(al, np.int64)
+    bl = np.asarray(bl, np.int64)
+    ops_ms = OPS_PER_CELL * float((al * bl).sum()) / int_rate * 1e3
+    bytes_ms = float((al + bl).sum() + 28 * len(al)) / MEM_RATE * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def standard_residues():
+    """Codes of the 20 standard amino acids (bench.py's alphabet)."""
+    from taxtk_torch.ops.blosum import AA_ORDER
+
+    return np.array([AA_ORDER.index(c) for c in "ACDEFGHIKLMNPQRSTVWY"],
+                    np.uint8)
+
+
+def make_protein_pairs(rng, B, len_range, redraw=(0.10, 0.35),
+                       empty=0.0, xstar=0.0):
+    """B related protein pairs, as RPA realigns them: a random over the
+    20 standard residues with a length in len_range, b a copy of a resized
+    to a length in len_range with 10-35% of its residues redrawn.  Then a
+    share `empty` of sides emptied and a share `xstar` of codes set to X
+    or *."""
+    std = standard_residues()
+    pairs = []
+    for _ in range(B):
+        m = int(rng.integers(len_range[0], len_range[1] + 1))
+        n = int(rng.integers(len_range[0], len_range[1] + 1))
+        a = std[rng.integers(0, 20, m)]
+        b = np.resize(a, n).copy()
+        red = rng.random(n) < rng.uniform(*redraw)
+        b[red] = std[rng.integers(0, 20, int(red.sum()))]
+        for s in (a, b):
+            s[rng.random(len(s)) < xstar] = rng.choice([25, 26])
+        if rng.random() < empty:
+            a = a[:0]
+        if rng.random() < empty:
+            b = b[:0]
+        pairs.append((a, b))
+    return pairs
+
+
+def _bucket(pairs, L):
+    """The aligner's padded square bucket of side L."""
+    ac, bc, al, bl = to_batch(pairs)
+    pad = lambda x: np.pad(x, ((0, 0), (0, L - x.shape[1])))  # noqa: E731
+    return pad(ac), pad(bc), al, bl
+
+
+def _check_protein(pairs, L, label, int_rate, reps, records):
+    """One main-path shape of both protein kernels, on both layouts of the
+    entry: the one-off pool and a fresh DevicePoolCache (the main path's).
+    On each, every output element of v5 and (inside its domain) v6 is held
+    against the plain version on the same tensors, and the mutual scores
+    against the host C++ NW.  Then, on the cache layout, each kernel's
+    CUDA-event median over `reps` launches, the plain version's time and
+    the bound."""
+    import torch
+
+    from taxtk_torch.native import protein_nw_batch
+    from taxtk_torch.ops import protein_cuda as pc
+    from taxtk_torch.ops.seqpool import DevicePoolCache
+
+    ac, bc, al, bl = _bucket(pairs, L)
+    want = protein_nw_batch(pairs, n_threads=0)
+    fits = pc._swar_fits(*pc._shapes(L, L)[:2])
+    kernels = [("protein_wavefront", pc.protein_wavefront)]
+    if fits:
+        kernels.append(("protein_swar", pc.protein_swar))
+    err = 0
+    for layout in ("one-off pool", "pool cache"):
+        cache = DevicePoolCache("cuda") if layout == "pool cache" else None
+        args = pc.protein_inputs(ac, bc, al, bl, torch.device("cuda"), cache)
+        plain, plain_ms = timed(lambda: pc.protein_plain(*args))
+        for name, fn in kernels:
+            got = fn(*args)
+            if not torch.equal(got, plain):
+                fail(f"{name} != plain version on {label} ({layout}): "
+                     f"{int((got != plain).any(0).sum())} pairs differ")
+            if not np.array_equal(got[0].cpu().numpy(), want):
+                fail(f"{name} mutual scores != host C++ NW on {label} "
+                     f"({layout})")
+            err = max(err, int((got - plain).abs().max()))
+    bnd, by = protein_bound(al, bl, int_rate)
+    for name, fn in kernels:
+        rec = dict(label=label, pairs=len(pairs), max_abs_err=err,
+                   ms=cuda_ms(lambda: fn(*args), reps), plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by)
+        records.setdefault(name, []).append(rec)
+        print(f"protein: {name} {label}: {json.dumps(rec)}", flush=True)
+
+
+def phase_protein(int_rate):
+    """Both protein kernels at the main path's shapes.  The first shape,
+    the aligner's full 512 bucket, gives the times."""
+    rng = np.random.default_rng(4321)
+    records = {}
+    # the aligner caps a bucket at max_batch_cells // L^2 pairs: 1024 at
+    # L = 512, 4096 at L = 256, 64 at L = 2048 (outside v6's domain)
+    _check_protein(make_protein_pairs(rng, 1024, (257, 512)), 512,
+                   "1024x512", int_rate, 5, records)
+    _check_protein(make_protein_pairs(rng, 4096, (129, 256)), 256,
+                   "4096x256", int_rate, 5, records)
+    # bench.py's canonical launch: 512 unrelated pairs of exactly 256 aa
+    r7 = np.random.RandomState(7)
+    std = standard_residues()
+    a = std[r7.randint(0, 20, (512, 256))]
+    b = std[r7.randint(0, 20, (512, 256))]
+    _check_protein(list(zip(a, b)), 256, "512x256x256", int_rate, 5, records)
+    _check_protein(make_protein_pairs(rng, 64, (1025, 2048)), 2048,
+                   "64x2048", int_rate, 3, records)
+    _check_protein(make_protein_pairs(rng, 1500, (60, 400), empty=0.03,
+                                      xstar=0.02), 512, "ragged-60-400",
+                   int_rate, 3, records)
+    return records
+
+
+def phase_golden():
+    """Every protein pair of both SeqAn golden corpora through both
+    kernels, bucketed by pow2 of the longer side as
+    tests/test_seqan_golden.py buckets them; v6 only where _swar_fits."""
+    from taxtk_torch.ops import protein_cuda as pc
+    from taxtk_torch.ops.seqpool import DevicePoolCache
+    from taxtk_torch.refpack.store import encode_protein
+
+    rows = []
+    for name in ("seqan_golden.tsv", "seqan_golden_r2.tsv"):
+        with open(os.path.join(ROOT, "tests", "fixtures", name)) as f:
+            for line in f:
+                if line.startswith("prot\t"):
+                    _, a, b, vals = line.rstrip("\n").split("\t")
+                    rows.append((encode_protein(a), encode_protein(b),
+                                 tuple(map(int, vals.split(",")))))
+    buckets = {}
+    for i, (a, b, _) in enumerate(rows):
+        L = 1
+        while L < max(len(a), len(b)):
+            L <<= 1
+        buckets.setdefault(L, []).append(i)
+    n_v6 = 0
+    cache = DevicePoolCache("cuda")
+    for L, idxs in sorted(buckets.items()):
+        ac, bc, al, bl = _bucket([rows[i][:2] for i in idxs], L)
+        fits = pc._swar_fits(*pc._shapes(L, L)[:2])
+        for swar in ((False, True) if fits else (False,)):
+            got = pc.batched_protein_align_cuda(ac, bc, al, bl,
+                                                device="cuda",
+                                                pool_cache=cache, swar=swar)
+            for r, i in enumerate(idxs):
+                have = (int(got["selfscore"][r]), int(got["mutual"][r]),
+                        int(got["matches"][r]), int(got["mismatches"][r]),
+                        int(got["gaps"][r]))
+                if have != rows[i][2]:
+                    fail(f"golden protein pair {i} ({'v6' if swar else 'v5'}"
+                         f"): {have} != {rows[i][2]}")
+            n_v6 += len(idxs) if swar else 0
+    rec = dict(pairs=len(rows), v5_pairs=len(rows), v6_pairs=n_v6,
+               buckets=sorted(buckets))
+    print(f"golden: {json.dumps(rec)}", flush=True)
+
+
+def run_binner(gff3: str) -> str:
+    """taxtk_torch.cli.binner.main on the GFF3's body, sorted by query as
+    the binning pipeline sorts it; returns the bioboxes output."""
+    from taxtk_torch.cli import binner
+
+    body = sorted((ln for ln in gff3.splitlines() if not ln.startswith("#")),
+                  key=lambda ln: ln.split("\t")[0])
+    out = io.StringIO()
+    saved, sys.stdin = sys.stdin, io.StringIO("\n".join(body) + "\n")
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = binner.main(["-n", "s", "-g", "([^_]+)_.*", "-l",
+                              os.devnull])
+    finally:
+        sys.stdin = saved
+    if rc != 0:
+        fail(f"binner exited {rc}")
+    return out.getvalue()
+
+
+def phase_protein_engine(n_orfs=2000):
+    """The protein main path: taxator -b protein -l on bench.py's protein
+    workload with wavefront-cuda, the plain wavefront backend and
+    TAXTK_PROTEIN_SWAR=1; GFF3s and logs byte-identical; then the binner.
+    Returns the protein kernels' launch counts (v5 from the first run,
+    v6 from the third)."""
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    from bench_e2e import make_workload_protein
+
+    from taxtk_torch.ops import protein_cuda as pc
+
+    runs = {}
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        aln, qfa, rfa, mapping, tax_dir, total_qaa = make_workload_protein(
+            d, n_orfs)
+        gen_s = time.time() - t
+        os.environ["TAXATORTK_TAXONOMY_NCBI"] = tax_dir
+        base = ["-b", "protein", "-g", mapping, "-q", qfa, "-f", rfa,
+                "-i", rfa + ".fai"]
+        for label, extra, swar in (("wavefront-cuda", [], False),
+                                   ("wavefront", ["--protein-backend",
+                                                  "wavefront"], False),
+                                   ("wavefront-cuda-swar", [], True)):
+            log = os.path.join(d, f"{label}.log")
+            if swar:
+                os.environ["TAXTK_PROTEIN_SWAR"] = "1"
+            pc.protein_wavefront.launches = 0
+            pc.protein_swar.launches = 0
+            try:
+                gff, secs, stats = run_cli(base + ["-l", log] + extra, aln)
+            finally:
+                os.environ.pop("TAXTK_PROTEIN_SWAR", None)
+            counts = {"protein_wavefront": pc.protein_wavefront.launches,
+                      "protein_swar": pc.protein_swar.launches}
+            with open(log) as f:
+                runs[label] = (gff, f.read(), secs, stats, counts)
+        # the binner reads the same taxonomy dump
+        bins = run_binner(runs["wavefront-cuda"][0])
+    gff0, log0 = runs["wavefront-cuda"][:2]
+    for label, (gff, log, *_rest) in runs.items():
+        if gff != gff0:
+            fail(f"protein GFF3 of {label} differs from wavefront-cuda")
+        if log != log0:
+            fail(f"protein -l log of {label} differs from wavefront-cuda")
+    n_lines = gff0.count("\n")
+    if not gff0.startswith("##gff-version 3\n") or n_lines < n_orfs // 2:
+        fail(f"protein GFF3 has {n_lines} lines for {n_orfs} ORFs")
+    if "+ALN" not in log0:
+        fail("the protein -l log holds no alignment art")
+    launches["protein_wavefront"] = runs["wavefront-cuda"][4][
+        "protein_wavefront"]
+    launches["protein_swar"] = runs["wavefront-cuda-swar"][4]["protein_swar"]
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"the protein main path never launched {name}")
+    if runs["wavefront"][4] != {"protein_wavefront": 0, "protein_swar": 0}:
+        fail("the plain wavefront backend launched a kernel")
+    rows = [ln for ln in bins.splitlines()
+            if ln and not ln.startswith(("#", "@"))]
+    if "\n@Version:" not in bins or not rows:
+        fail("the binner wrote no bioboxes body")
+    maa_h = lambda s: total_qaa / 1e6 / (s / 3600)  # noqa: E731
+    rec = dict(orfs=n_orfs, query_aa=total_qaa, gff3_lines=n_lines,
+               log_bytes=len(log0), workload_s=gen_s,
+               gff3_and_logs_identical=True, bioboxes_rows=len(rows))
+    for label, (_, _, secs, stats, counts) in runs.items():
+        rec[label] = dict(engine_s=secs, maa_per_h=maa_h(secs),
+                          launches=counts, stats=stats)
+    print(f"protein engine: {json.dumps(rec)}", flush=True)
+    return launches
+
+
 KERNELS = (
     ("myers_short", "taxtk_torch/csrc/myers_short.cu",
      "taxtk/ops/pallas_myers.py:121"),
     ("myers_systolic", "taxtk_torch/csrc/myers_systolic.cu",
      "taxtk/ops/pallas_myers_systolic.py:70"),
+    ("protein_wavefront", "taxtk_torch/csrc/protein_wavefront.cu",
+     "taxtk/ops/pallas_protein.py:105"),
+    ("protein_swar", "taxtk_torch/csrc/protein_swar.cu",
+     "taxtk/ops/pallas_protein.py:267"),
 )
 
 
@@ -350,12 +646,17 @@ def main() -> int:
     phase_build()
     short, long_ = phase_kernels(int_rate)
     launches = phase_engine()
+    prot = phase_protein(int_rate)
+    phase_golden()
+    launches.update(phase_protein_engine())
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "taxtk"))
     if bad:
         fail(f"imported {bad[:5]}")
     kernels = []
-    for (name, source, replaces), recs in zip(KERNELS, (short, long_)):
+    recs_of = dict(myers_short=short, myers_systolic=long_, **prot)
+    for name, source, replaces in KERNELS:
+        recs = recs_of[name]
         main_rec = recs[0]  # the main-path shape
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

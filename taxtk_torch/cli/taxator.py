@@ -2,11 +2,12 @@
 
     python -m taxtk_torch.cli.taxator [flags] < alignments > out.gff3
 
-Same flags and the same GFF3 bytes as taxtk's taxator; the DNA backends
+Same flags and the same GFF3 bytes as taxtk's taxator.  The DNA backends
 are myers-cuda (the hand-written CUDA kernels; the default), myers (their
-plain PyTorch versions) and native (host C++), and --device picks the card
-(cuda, the default) or the CPU.  Protein mode (-b protein) and --mesh are
-not ported yet and stop with an error.
+plain PyTorch versions) and native (host C++); protein mode (-b protein)
+has wavefront-cuda (the BLOSUM62 wavefront kernels; the default) and
+wavefront (the plain recurrence).  --device picks the card (cuda, the
+default) or the CPU.  --mesh is not ported yet and stops with an error.
 
 
 Flags, defaults and the stdin->stdout text contract follow the reference
@@ -83,8 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="alignment kernel backend (default: myers-cuda on "
                         "cuda, myers on cpu)")
     p.add_argument("--protein-backend",
-                   help="protein kernel backend (protein mode is not yet "
-                        "ported)")
+                   choices=["wavefront-cuda", "wavefront"],
+                   help="protein kernel backend (default: wavefront-cuda on "
+                        "cuda, wavefront on cpu)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device for the alignment kernels (default: cuda)")
     p.add_argument("--stats", action="store_true",
@@ -131,11 +133,7 @@ def main(argv=None) -> int:
             if args.dataformat not in ("nucleotide", "protein"):
                 print("data format can either be nucleotide or protein")
                 return 1
-            if args.dataformat == "protein" or args.protein_backend:
-                raise TaxtkError(
-                    "protein mode is not yet ported to taxtk_torch; run it "
-                    "with python -m taxtk.cli.taxator (see ROADMAP.md)"
-                )
+            protein = args.dataformat == "protein"
             if args.mesh:
                 raise TaxtkError(
                     "--mesh is not yet ported to taxtk_torch (see ROADMAP.md)"
@@ -158,13 +156,16 @@ def main(argv=None) -> int:
                 from ..engine.aligner import BatchAligner
 
                 aligner = BatchAligner(
-                    "dna", dna_backend=args.dna_backend, device=args.device
+                    "protein" if protein else "dna",
+                    dna_backend=args.dna_backend,
+                    protein_backend=args.protein_backend,
+                    device=args.device,
                 )
                 engine = RpaEngine(
                     tax,
                     query_store,
                     db_store,
-                    protein=False,
+                    protein=protein,
                     exclude_factor=args.heuristic_cutoff,
                     toppercent=args.toppercent,
                     macro_batch=args.macro_batch,

@@ -1,7 +1,7 @@
 """Batched alignment service: ragged pair lists -> bucketed device batches.
 
-Port of taxtk/engine/aligner.py (BatchAligner), DNA mode.  The RPA
-executor hands over every pair a macro-batch's alignment round needs; the
+Port of taxtk/engine/aligner.py (BatchAligner).  The RPA executor hands
+over every pair a macro-batch's alignment round needs.  In DNA mode the
 aligner routes each pair by the length of its shorter side, exactly as
 taxtk does:
 
@@ -12,11 +12,19 @@ taxtk does:
     block-systolic entry (ops/myers_systolic.py, Kernel 2);
   * beyond the caps: the host C++ Myers on a thread, concurrently.
 
-Backends: "myers-cuda" (the kernels; the default on the card), "myers"
-(the kernels' plain PyTorch versions, on any device) and "native" (the
-host C++ Myers for every pair).  There is no fallback: a kernel that
-cannot build or launch raises.  Distances are exact; float32 stats as in
-taxtk.
+DNA backends: "myers-cuda" (the kernels; the default on the card),
+"myers" (the kernels' plain PyTorch versions, on any device) and "native"
+(the host C++ Myers for every pair).
+
+In protein mode every pair with two non-empty sides goes to one square
+pow2 bucket of its longer side, each capped at max_batch_cells // L^2
+pairs.  Protein backends: "wavefront-cuda" (the BLOSUM62 wavefront
+kernels of ops/protein_cuda.py, v5 or, with TAXTK_PROTEIN_SWAR=1, v6;
+the default on the card) and "wavefront" (ops/protein_ref.py, the plain
+recurrence; the default on the CPU).
+
+There is no fallback: a kernel that cannot build or launch raises.
+Distances are exact; float32 stats as in taxtk.
 """
 
 from __future__ import annotations
@@ -33,9 +41,12 @@ from ..models.rpa import AlignValue, f32
 from ..ops.myers_cuda import MAX_K, batched_edit_distance_short
 from ..ops.myers_systolic import batched_edit_distance_systolic
 from ..ops.host import WORD
+from ..ops.protein_cuda import batched_protein_align_cuda
+from ..ops.protein_ref import batched_protein_align
 from ..utils.errors import TaxtkError
 
 DNA_BACKENDS = ("myers-cuda", "myers", "native")
+PROTEIN_BACKENDS = ("wavefront-cuda", "wavefront")
 # device caps of the long route (taxtk/ops/pallas_myers.py): patterns up
 # to 96 kbp (96 systolic blocks, inside one 128-slot row) and texts up to
 # 256 kbp stay on the device; beyond -> host C++
@@ -79,10 +90,13 @@ class _DevPending:
 
 
 class BatchAligner:
-    """DNA pair aligner (edit distance + the reference's approximate stats).
+    """mode: "dna" (edit distance + the reference's approximate stats) or
+    "protein" (BLOSUM62 global alignment + traceback stats).
 
     dna_backend: "myers-cuda" | "myers" | "native" (default: myers-cuda on
-    a CUDA device, myers on the CPU).  device: "cuda" (default) or "cpu".
+    a CUDA device, myers on the CPU).  protein_backend: "wavefront-cuda" |
+    "wavefront" (default: wavefront-cuda on a CUDA device, wavefront on the
+    CPU).  device: "cuda" (default) or "cpu".
     """
 
     # align_pairs(deferred=True) returns a finish() callable (the engine's
@@ -94,22 +108,25 @@ class BatchAligner:
         mode: str = "dna",
         max_batch_cells: int = 1 << 28,
         dna_backend: str | None = None,
+        protein_backend: str | None = None,
         device="cuda",
     ):
-        if mode != "dna":
-            raise TaxtkError(
-                "protein mode is not yet ported to taxtk_torch; run it with "
-                "python -m taxtk.cli.taxator (see ROADMAP.md)"
-            )
+        if mode not in ("dna", "protein"):
+            raise TaxtkError(f"unknown aligner mode {mode!r}; dna or protein")
         self.mode = mode
         self.device = resolve_device(device)
-        self.dna_backend = dna_backend or (
-            "myers-cuda" if self.device.type == "cuda" else "myers")
-        if self.dna_backend not in DNA_BACKENDS:
-            raise TaxtkError(
-                f"unknown dna backend {self.dna_backend!r}; one of "
-                f"{', '.join(DNA_BACKENDS)}"
-            )
+        on_card = self.device.type == "cuda"
+        self.dna_backend = dna_backend or ("myers-cuda" if on_card else "myers")
+        self.protein_backend = protein_backend or (
+            "wavefront-cuda" if on_card else "wavefront")
+        for kind, name, known in (("dna", self.dna_backend, DNA_BACKENDS),
+                                  ("protein", self.protein_backend,
+                                   PROTEIN_BACKENDS)):
+            if name not in known:
+                raise TaxtkError(
+                    f"unknown {kind} backend {name!r}; one of "
+                    f"{', '.join(known)}"
+                )
         # cap on batch * M * N cells per launch (bucket pair counts)
         self.max_batch_cells = max_batch_cells
         # shorter sides above this leave the short buckets for the
@@ -123,7 +140,8 @@ class BatchAligner:
         # cross-round device-resident sequence pool (ops/seqpool.py),
         # shared by every aligner on this device
         self.pool_cache = None
-        if self.dna_backend != "native":
+        if (self.dna_backend != "native" if mode == "dna"
+                else self.protein_backend == "wavefront-cuda"):
             from ..ops.seqpool import shared_pool_cache
 
             self.pool_cache = shared_pool_cache(self.device)
@@ -170,7 +188,8 @@ class BatchAligner:
         another batch's host replay)."""
         results: List[AlignValue] = [None] * len(pairs)  # type: ignore
 
-        native_all = self.dna_backend == "native"
+        dna = self.mode == "dna"
+        native_all = dna and self.dna_backend == "native"
         work: List[int] = []
         dev_long: List[int] = []
         host_long: List[int] = []
@@ -179,7 +198,7 @@ class BatchAligner:
                 results[k] = self._empty_pair(len(a), len(b))
             elif native_all:
                 host_long.append(k)
-            elif min(len(a), len(b)) > self.long_pattern_threshold:
+            elif dna and min(len(a), len(b)) > self.long_pattern_threshold:
                 if (
                     min(len(a), len(b)) <= self.tpu_long_pattern_cap
                     and max(len(a), len(b)) <= self.tpu_long_text_cap
@@ -238,6 +257,18 @@ class BatchAligner:
         return finish()
 
     def _dispatch_buckets(self, pairs, work, results, finishers):
+        if self.mode == "protein":
+            # one square bucket per pow2 of the longer side
+            buckets = {}
+            for k in work:
+                a, b = pairs[k]
+                buckets.setdefault(_pow2ceil(max(len(a), len(b))), []).append(k)
+            for L, idxs in buckets.items():
+                max_pairs = max(1, self.max_batch_cells // (L * L))
+                for off in range(0, len(idxs), max_pairs):
+                    self._run_bucket(pairs, idxs[off : off + max_pairs], L, L,
+                                     results, finishers)
+            return
         # Myers cost is pairs x text x ceil(pattern/32): only the text
         # length needs bucketing; everything else pads internally
         buckets = {}
@@ -316,6 +347,26 @@ class BatchAligner:
         self.cells_computed += int((a_len * b_len).sum())
         self._tick("stage_batch", t0)
         t0 = _time.time()
+        if self.mode == "protein":
+            def fill_protein(out, idxs=idxs):
+                dist = out["distance"]  # already float32 (post() math)
+                sim = out["similarity"]
+                for r, k in enumerate(idxs):
+                    results[k] = AlignValue(dist[r], sim[r])
+
+            if self.protein_backend == "wavefront-cuda":
+                dev, post = batched_protein_align_cuda(
+                    a_codes, b_codes, a_len, b_len, device=self.device,
+                    lazy="device", pool_cache=self.pool_cache,
+                )
+            else:
+                dev, post = batched_protein_align(
+                    a_codes, b_codes, a_len, b_len, device=self.device,
+                    lazy="device",
+                )
+            finishers.append(_DevPending(dev, post, fill_protein))
+            self._tick("device", t0)
+            return
 
         def fill_dna(dist, idxs=idxs, a_len=a_len, b_len=b_len):
             lendiff = np.abs(a_len - b_len)
@@ -335,4 +386,7 @@ class BatchAligner:
         self._tick("device", t0)
 
     def _empty_pair(self, la: int, lb: int) -> AlignValue:
-        return AlignValue(distance=f32(max(la, lb)), similarity=f32(0))
+        if self.mode == "dna":
+            return AlignValue(distance=f32(max(la, lb)), similarity=f32(0))
+        # protein with an empty side: all-gap alignment
+        return AlignValue(distance=f32(0.0), similarity=f32(0.0))

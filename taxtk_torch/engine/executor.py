@@ -125,6 +125,7 @@ class RpaEngine:
         aligner: Optional[BatchAligner] = None,
         logsink=None,
         mesh=None,
+        device="cuda",
     ):
         if mesh is not None:
             from ..utils.errors import TaxtkError
@@ -157,7 +158,7 @@ class RpaEngine:
         self.toppercent = toppercent
         self.macro_batch = macro_batch
         self.aligner = aligner or BatchAligner(
-            "protein" if protein else "dna"
+            "protein" if protein else "dna", device=device
         )
         self.logsink = logsink
         from .metrics import EngineMetrics

@@ -32,7 +32,7 @@ RANKS = ["superkingdom", "phylum", "class", "order", "family", "genus",
          "species"]
 
 
-def _run_engine(pkg, paths, aligner):
+def _run_engine(pkg, paths, aligner, protein=False):
     """Parse + group + RPA engine of package `pkg`; returns (gff3, log)."""
     mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
     aln_path, query_fa, ref_fa, map_path, tax_dir, _ = paths
@@ -49,7 +49,7 @@ def _run_engine(pkg, paths, aligner):
     out, log = io.StringIO(), io.StringIO()
     engine = mod("engine.executor").RpaEngine(
         tax, store.IndexedFastaStore(query_fa), store.IndexedFastaStore(ref_fa),
-        aligner=aligner, logsink=log,
+        aligner=aligner, logsink=log, protein=protein,
     )
     rsets = mod("engine.recordsets").iter_record_sets(iter(recs), True, False)
     engine.run(rsets, out)
@@ -123,10 +123,9 @@ def test_cli_unported_modes_fail_clearly(refpack, monkeypatch, capsys):  # noqa:
     monkeypatch.setenv("TAXATORTK_TAXONOMY_NCBI", str(refpack["dir"]))
     argv = ["-g", refpack["mapping"], "-q", refpack["qfile"],
             "-f", refpack["refdata"], "--device", "cpu"]
-    for extra in (["-b", "protein"], ["--mesh", "1x1"]):
-        monkeypatch.setattr(sys, "stdin", io.StringIO(refpack["alignments"]))
-        assert torch_cli.main(argv + extra) == 1
-        assert "not yet ported" in capsys.readouterr().err
+    monkeypatch.setattr(sys, "stdin", io.StringIO(refpack["alignments"]))
+    assert torch_cli.main(argv + ["--mesh", "1x1"]) == 1
+    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_default_device_is_cuda():

@@ -23,7 +23,8 @@ def test_cli_import_loads_no_jax_and_no_taxtk():
     code = (
         "import sys\n"
         "import taxtk_torch.cli.taxator, taxtk_torch.engine.aligner\n"
-        "import taxtk_torch.ops.myers_systolic\n"
+        "import taxtk_torch.ops.myers_systolic, taxtk_torch.cli.binner\n"
+        "import taxtk_torch.ops.protein_cuda\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'taxtk' or m.startswith('taxtk.'))\n"
         "print(bad)\n"
