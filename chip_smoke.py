@@ -5,16 +5,23 @@
 
 Phases, one line each:
   env      CUDA version, card name and power limit;
-  build    nvcc builds the four kernels from taxtk_torch/csrc for sm_90a
-           (both Myers kernels, both protein kernels), one process each;
+  build    nvcc builds the six kernels from taxtk_torch/csrc for sm_90a
+           (the short, systolic and chunked Myers kernels, the min-plus DNA
+           wavefront, both protein kernels), one process each;
   kernels  each Myers kernel against its plain PyTorch version on the card
            and against the port's host C++ Myers, at main-path shapes, on
            the one-off pool and on the shared pool cache, with CUDA-event
-           times;
+           times (the chunked kernel against its plain version launch by
+           launch, at two shapes); the DNA wavefront kernel against the
+           host C++ Myers and its plain version at the aligner's bucket
+           shapes;
   engine   the taxator CLI (nucleotide RPA) on a 300-contig workload of
-           1-20 kbp contigs, once with the default myers-cuda backend and
-           once with --dna-backend native; the GFF3 outputs must be
-           byte-identical and both Myers kernels must have launched;
+           1-20 kbp contigs, with the default myers-cuda backend, with
+           --dna-backend native, with --dna-backend wavefront-cuda, and with
+           myers-cuda and the aligner's systolic_max_pairs = 0 (the
+           oversized-round route through the chunked kernel); every GFF3
+           must be byte-identical to native's and each kernel of each path
+           must have launched;
   protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
            against their plain version, element for element, and their
            mutual scores against the host C++ NW, at main-path shapes on
@@ -44,6 +51,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -59,8 +67,12 @@ OPS_PER_WORD_CHAR = 20  # essential Myers ops per 32-cell word per char
 # increments (IADD3).  The table load issues on the load/store unit and
 # is not counted.
 OPS_PER_CELL = 9
-KERNEL_SOURCES = ["myers_short", "myers_systolic", "protein_wavefront",
-                  "protein_swar"]
+# essential INT32 ops per min-plus DNA cell: the compare a != b, the add of
+# the diagonal and its cost, the min of up and left, and the DPX add-min
+# (VIADDMNMX) that adds 1 to that min and takes the min with the diagonal
+DNA_OPS_PER_CELL = 4
+KERNEL_SOURCES = ["myers_short", "myers_systolic", "myers_chunked",
+                  "dna_wavefront", "protein_wavefront", "protein_swar"]
 INT32_LANES = 132 * 64  # H100 SXM: SMs x INT32 lanes per SM per clock
 
 
@@ -182,9 +194,10 @@ def phase_build():
     regs = {}
     for name in KERNEL_SOURCES:
         # ptxas -v: "Compiling entry function '..._kernelILi64ELi2EE...'"
-        # (myers_short<K, BITS>; myers_systolic<BITS> at KC = 32; the
-        # protein kernels are not templates), then the spill line, then
-        # "Used N registers"
+        # (myers_short<K, BITS>, myers_chunked<KB = 64, BITS>;
+        # myers_systolic<BITS> at KC = 32; dna_wavefront and the protein
+        # kernels are not templates), then the spill line, then "Used N
+        # registers"
         key = None
         for ln in cuda_build.ptxas_report(name).splitlines():
             if "Compiling entry function" not in ln:
@@ -258,12 +271,142 @@ def _check(kind, pairs, label, int_rate, reps, record):
     print(f"kernels: {kind} {label}: {json.dumps(rec)}", flush=True)
 
 
+def chunked_bound(n, words, launches, Kb, bits, int_rate):
+    """Least time (ms) of chunked-kernel launches, and what bounds it: the
+    essential Myers ops (20 per 32-cell word per char) of `words` [B]
+    pattern words per pair over its own text, over the INT32 issue rate,
+    against the bytes `launches` [B] launches move once per pair (packed
+    text, the block's Kb peq words, the carry stream read and written, one
+    byte each per char, and nine int32 of per-pair input and output) over
+    the memory rate."""
+    n = np.asarray(n, np.int64)
+    ops_ms = OPS_PER_WORD_CHAR * float((n * words).sum()) / int_rate * 1e3
+    per_launch = -(-n // (8 // bits)) + 2 * n + Kb * 5 * 4 + 9 * 4
+    bytes_ms = float((launches * per_launch).sum()) / MEM_RATE * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def _first_launch(args):
+    """The chunked kernel's first launch (block 0) of the entry's args."""
+    import torch
+
+    pool, txt_col, peq, pat_idx, mword, mbit, nlen, mlen, N, Kb, bits = args
+    hin = torch.ones((N, txt_col.shape[0]), dtype=torch.int8,
+                     device=pool.device)
+    return (pool, txt_col, peq[:Kb], pat_idx, mword, mbit, nlen, mlen,
+            torch.maximum(mlen, nlen), hin, bits)
+
+
+def _check_chunked(pairs, label, int_rate, reps, record, plain):
+    """One case of the chunked kernel on both layouts of its entry (the
+    one-off pool and a fresh DevicePoolCache, the main path's): every
+    launch of the entry on the card, its distances against the host C++
+    Myers.  On the cache layout, the entry's CUDA-event time (`entry_ms`);
+    with `plain`, the first launch against the plain version (score, res,
+    and the carry stream where a later launch reads it); and the first
+    launch's CUDA-event median (`ms`), held against that launch's bound
+    and plain time."""
+    import torch
+
+    from taxtk_torch.native import myers_batch
+    from taxtk_torch.ops import myers_chunked as mc
+    from taxtk_torch.ops.seqpool import DevicePoolCache
+
+    ac, bc, al, bl = to_batch(pairs)
+    want = myers_batch(pairs)
+    for layout in ("one-off pool", "pool cache"):
+        cache = DevicePoolCache("cuda") if layout == "pool cache" else None
+        args, post = mc.chunked_inputs(ac, bc, al, bl, torch.device("cuda"),
+                                       pool_cache=cache)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = mc.run_chunked(*args)
+        end.record()
+        if not np.array_equal(post(got.cpu().numpy()), want):
+            fail(f"chunked kernel != host C++ Myers on {label} ({layout})")
+    entry_ms = start.elapsed_time(end)
+    step = _first_launch(args)
+    err, plain_ms = 0, None
+    if plain:
+        got = mc.myers_chunked(*step)
+        (p_score, p_res, p_h), plain_ms = timed(
+            lambda: mc.myers_chunked_plain(*step))
+        live = torch.arange(args[8], device="cuda")[:, None] < args[6][None]
+        if not (torch.equal(got[0], p_score) and torch.equal(got[1], p_res)
+                and torch.equal(got[2][live], p_h[live])):
+            fail(f"chunked kernel != plain version on {label}")
+        err = max(int((got[0] - p_score).abs().max()),
+                  int((got[1] - p_res).abs().max()))
+    Kb, bits = args[9], args[10]
+    m, n = np.minimum(al, bl), np.maximum(al, bl)
+    words = -(-m // 32)
+    blocks = -(-words // Kb)
+    rec = dict(label=label, pairs=len(pairs), bits=bits,
+               blocks=int(blocks.max()), max_abs_err=err,
+               plain_checked=plain,
+               ms=cuda_ms(lambda: mc.myers_chunked(*step), reps),
+               plain_ms=plain_ms, entry_ms=entry_ms)
+    rec["bound_ms"], rec["bound_by"] = chunked_bound(
+        n, np.minimum(words, Kb), 1, Kb, bits, int_rate)
+    rec["entry_bound_ms"], _ = chunked_bound(n, words, blocks, Kb, bits,
+                                             int_rate)
+    record.append(rec)
+    print(f"kernels: chunked {label}: {json.dumps(rec)}", flush=True)
+
+
+def wavefront_bound(al, bl, int_rate):
+    """Least time (ms) for the min-plus DP of these pairs, and what bounds
+    it: DNA_OPS_PER_CELL INT32 ops per cell of each pair's own alen x blen
+    over the INT32 issue rate, against the bytes moved once (both sides'
+    codes, the two int32 lengths and the int32 result) over the memory
+    rate."""
+    al = np.asarray(al, np.int64)
+    bl = np.asarray(bl, np.int64)
+    ops_ms = DNA_OPS_PER_CELL * float((al * bl).sum()) / int_rate * 1e3
+    bytes_ms = float((al + bl).sum() + 12 * len(al)) / MEM_RATE * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def _check_wavefront(pairs, L, label, int_rate, reps, record):
+    """One bucket of the DNA wavefront kernel as the aligner forms it
+    (both sides padded to L): its distances against the host C++ Myers
+    and, element for element, the plain version's; CUDA-event median,
+    the plain version's time and the bound."""
+    from taxtk_torch.native import myers_batch
+    from taxtk_torch.ops.dna_align import (edit_distance_wavefront,
+                                           wavefront_inputs)
+    from taxtk_torch.ops.dna_wavefront import _launch, dna_wavefront
+
+    ac, bc, al, bl = _bucket(pairs, L)
+    args = wavefront_inputs(ac, bc, al, bl, "cuda")
+    got = dna_wavefront(*args)
+    if not np.array_equal(got.cpu().numpy(), myers_batch(pairs)):
+        fail(f"dna_wavefront != host C++ Myers on {label}")
+    plain, plain_ms = timed(lambda: edit_distance_wavefront(*args))
+    if not np.array_equal(got.cpu().numpy(), plain.cpu().numpy()):
+        fail(f"dna_wavefront != plain version on {label}")
+    rec = dict(label=label, pairs=len(pairs), L=L,
+               max_abs_err=int((got - plain).abs().max()),
+               # timed as the entry launches it: lengths checked on the
+               # host, so no wait on the card before the launch
+               ms=cuda_ms(lambda: _launch(*args), reps),
+               plain_ms=plain_ms)
+    rec["bound_ms"], rec["bound_by"] = wavefront_bound(al, bl, int_rate)
+    record.append(rec)
+    print(f"kernels: wavefront {label}: {json.dumps(rec)}", flush=True)
+
+
 def phase_kernels(int_rate, long_shapes=((64, 25_000), (16, 50_000),
                                          (4, 98_000))):
     """Each kernel against its plain version and the host C++ Myers.  The
     first case of each kernel is its main-path shape and gives its times."""
     rng = np.random.default_rng(1234)
-    short, long_ = [], []
+    short, long_, chunked, wave = [], [], [], []
     # Kernel 1: the largest bucket the aligner forms at 2048 bp (its
     # max_batch_cells cap allows 2048 pairs there; K = 64, 2-bit), then
     # the 8192-pair group the aligner forms only for short texts
@@ -281,7 +424,32 @@ def phase_kernels(int_rate, long_shapes=((64, 25_000), (16, 50_000),
                f"{B}x{L // 1000}k", int_rate, 3, long_)
     _check("systolic", make_pairs(rng, 48, (2049, 12_000), (2049, 16_000), 5),
            "ragged-4bit-N", int_rate, 3, long_)
-    return short, long_
+    # the chunked kernel: the same long shapes (the plain version at the
+    # first, launch by launch), a ragged 4-bit batch with N codes (also
+    # against the plain version) and a full 1024-pair chunk of the
+    # oversized-round route
+    for i, (B, L) in enumerate(long_shapes):
+        _check_chunked(make_pairs(rng, B, (L - 500, L), (L, L + 500)),
+                       f"{B}x{L // 1000}k", int_rate, 3, chunked, i == 0)
+    _check_chunked(make_pairs(rng, 48, (2049, 12_000), (2049, 16_000), 5),
+                   "ragged-4bit-N", int_rate, 3, chunked, True)
+    _check_chunked(make_pairs(rng, 1024, (2049, 6000), (2049, 6500)),
+                   "1024x2049-6000", int_rate, 3, chunked, False)
+    # the DNA wavefront kernel at the aligner's square buckets, each capped
+    # at max_batch_cells // L^2 pairs: 1 at L = 32768, 4 at 8192, 64 at
+    # 2048, 4096 at 256; then a ragged bucket with N codes and length-1
+    # sides
+    for B, L in ((1, 32768), (4, 8192), (64, 2048), (4096, 256)):
+        lo = 19_000 if L == 32768 else L // 2 + 1
+        hi = 20_000 if L == 32768 else L
+        _check_wavefront(make_pairs(rng, B, (lo, hi), (lo, hi)), L,
+                         f"{B}x{L}", int_rate, 3, wave)
+    ragged = make_pairs(rng, 1500, (1, 512), (1, 512), 5)
+    for i in range(0, 1500, 50):
+        a, b = ragged[i]
+        ragged[i] = (a[:1], b) if i % 100 else (a, b[:1])
+    _check_wavefront(ragged, 512, "ragged-4bit-N", int_rate, 3, wave)
+    return short, long_, chunked, wave
 
 
 def run_cli(argv, aln_path):
@@ -313,14 +481,51 @@ def run_cli(argv, aln_path):
 
 
 def phase_engine(n_contigs=300):
-    """The port's main path: nucleotide taxator on make_workload, myers-cuda
-    against --dna-backend native.  Returns the kernels' launch counts of
-    the myers-cuda run."""
+    """The port's main paths on make_workload: nucleotide taxator with
+    myers-cuda, with --dna-backend native, with wavefront-cuda, and with
+    myers-cuda and the aligner's systolic_max_pairs = 0 (taxtk's
+    oversized-round route, which has no CLI flag).  Each GFF3 must equal
+    native's.  Returns each kernel's launch count from its path's run."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload
 
-    from taxtk_torch.ops import myers_cuda, myers_systolic
+    from taxtk_torch.engine import aligner as aligner_mod
+    from taxtk_torch.ops import (dna_wavefront, myers_chunked, myers_cuda,
+                                 myers_systolic)
 
+    wrappers = {"myers_short": myers_cuda.myers_short,
+                "myers_systolic": myers_systolic.myers_systolic,
+                "myers_chunked": myers_chunked.myers_chunked,
+                "dna_wavefront": dna_wavefront.dna_wavefront}
+    launches = {}
+
+    def counted(run, names):
+        """run() with the named kernels' counts set to 0 just before; all
+        four counts read just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        value = run()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for name in names:
+            if counts[name] <= 0:
+                fail(f"the main path never launched {name}")
+            launches[name] = counts[name]
+        return value, counts
+
+    class OversizedAligner(aligner_mod.BatchAligner):
+        """Every long chunk to the chunked entry (taxtk's
+        systolic_max_pairs = 0)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.systolic_max_pairs = 0
+
+    def run_oversized():
+        with mock.patch.object(aligner_mod, "BatchAligner", OversizedAligner):
+            return run_cli(argv, aln)
+
+    mbp_h = lambda bp, s: bp / 1e6 / (s / 3600)  # noqa: E731
+    runs = {}
     with tempfile.TemporaryDirectory() as d:
         t = time.time()
         aln, qfa, rfa, mapping, tax_dir, total_qbp = make_workload(
@@ -328,28 +533,26 @@ def phase_engine(n_contigs=300):
         gen_s = time.time() - t
         os.environ["TAXATORTK_TAXONOMY_NCBI"] = tax_dir
         argv = ["-g", mapping, "-q", qfa, "-f", rfa, "-i", rfa + ".fai"]
-        myers_cuda.myers_short.launches = 0
-        myers_systolic.myers_systolic.launches = 0
-        gff_cuda, secs_cuda, stats_cuda = run_cli(argv, aln)
-        launches = {"myers_short": myers_cuda.myers_short.launches,
-                    "myers_systolic": myers_systolic.myers_systolic.launches}
-        gff_native, secs_native, stats_native = run_cli(
-            argv + ["--dna-backend", "native"], aln)
-    n_lines = gff_cuda.count("\n")
-    if gff_cuda != gff_native:
-        fail("myers-cuda GFF3 differs from --dna-backend native")
-    if not gff_cuda.startswith("##gff-version 3\n") or n_lines < n_contigs:
+        runs["myers-cuda"] = counted(lambda: run_cli(argv, aln),
+                                     ("myers_short", "myers_systolic"))
+        runs["native"] = counted(
+            lambda: run_cli(argv + ["--dna-backend", "native"], aln), ())
+        runs["oversized"] = counted(run_oversized, ("myers_chunked",))
+        runs["wavefront-cuda"] = counted(
+            lambda: run_cli(argv + ["--dna-backend", "wavefront-cuda"], aln),
+            ("dna_wavefront",))
+    gff_native = runs["native"][0][0]
+    n_lines = gff_native.count("\n")
+    if not gff_native.startswith("##gff-version 3\n") or n_lines < n_contigs:
         fail(f"GFF3 has {n_lines} lines for {n_contigs} contigs")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"the main path never launched {name}")
-    mbp_h = lambda s: total_qbp / 1e6 / (s / 3600)  # noqa: E731
+    for label in ("myers-cuda", "oversized", "wavefront-cuda"):
+        if runs[label][0][0] != gff_native:
+            fail(f"{label} GFF3 differs from --dna-backend native")
     rec = dict(contigs=n_contigs, query_bp=total_qbp, gff3_lines=n_lines,
-               workload_s=gen_s, cuda_engine_s=secs_cuda,
-               cuda_mbp_per_h=mbp_h(secs_cuda), native_engine_s=secs_native,
-               native_mbp_per_h=mbp_h(secs_native), launches=launches,
-               cuda_stats=stats_cuda, native_stats=stats_native,
-               gff3_identical=True)
+               workload_s=gen_s, gff3_identical=True)
+    for label, ((_, secs, stats), counts) in runs.items():
+        rec[label] = dict(engine_s=secs, mbp_per_h=mbp_h(total_qbp, secs),
+                          launches=counts, stats=stats)
     print(f"engine: {json.dumps(rec)}", flush=True)
     return launches
 
@@ -621,6 +824,10 @@ KERNELS = (
      "taxtk/ops/pallas_myers.py:121"),
     ("myers_systolic", "taxtk_torch/csrc/myers_systolic.cu",
      "taxtk/ops/pallas_myers_systolic.py:70"),
+    ("myers_chunked", "taxtk_torch/csrc/myers_chunked.cu",
+     "taxtk/ops/pallas_myers.py:253"),
+    ("dna_wavefront", "taxtk_torch/csrc/dna_wavefront.cu",
+     "taxtk/ops/pallas_dna.py:26"),
     ("protein_wavefront", "taxtk_torch/csrc/protein_wavefront.cu",
      "taxtk/ops/pallas_protein.py:105"),
     ("protein_swar", "taxtk_torch/csrc/protein_swar.cu",
@@ -644,7 +851,7 @@ def main() -> int:
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     int_rate = INT32_LANES * clock_mhz * 1e6
     phase_build()
-    short, long_ = phase_kernels(int_rate)
+    short, long_, chunked, wave = phase_kernels(int_rate)
     launches = phase_engine()
     prot = phase_protein(int_rate)
     phase_golden()
@@ -654,7 +861,8 @@ def main() -> int:
     if bad:
         fail(f"imported {bad[:5]}")
     kernels = []
-    recs_of = dict(myers_short=short, myers_systolic=long_, **prot)
+    recs_of = dict(myers_short=short, myers_systolic=long_,
+                   myers_chunked=chunked, dna_wavefront=wave, **prot)
     for name, source, replaces in KERNELS:
         recs = recs_of[name]
         main_rec = recs[0]  # the main-path shape

@@ -3,8 +3,9 @@
     python -m taxtk_torch.cli.taxator [flags] < alignments > out.gff3
 
 Same flags and the same GFF3 bytes as taxtk's taxator.  The DNA backends
-are myers-cuda (the hand-written CUDA kernels; the default), myers (their
-plain PyTorch versions) and native (host C++); protein mode (-b protein)
+are myers-cuda (the hand-written Myers kernels; the default), myers (their
+plain PyTorch versions), native (host C++), wavefront-cuda (the min-plus
+wavefront kernel) and wavefront (its plain version); protein mode (-b protein)
 has wavefront-cuda (the BLOSUM62 wavefront kernels; the default) and
 wavefront (the plain recurrence).  --device picks the card (cuda, the
 default) or the CPU.  --mesh is not ported yet and stops with an error.
@@ -80,9 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="TRACE_DIR",
                    help="write a torch.profiler trace of the run")
     p.add_argument("--dna-backend",
-                   choices=["myers-cuda", "myers", "native"],
+                   choices=["myers-cuda", "myers", "native", "wavefront-cuda",
+                            "wavefront"],
                    help="alignment kernel backend (default: myers-cuda on "
-                        "cuda, myers on cpu)")
+                        "cuda, myers on cpu); wavefront-cuda and wavefront "
+                        "are the min-plus DP kernel and its plain version")
     p.add_argument("--protein-backend",
                    choices=["wavefront-cuda", "wavefront"],
                    help="protein kernel backend (default: wavefront-cuda on "

@@ -9,12 +9,19 @@ taxtk does:
     (ops/myers_cuda.py, Kernel 1);
   * above that, up to a 98,304 bp pattern and a 262,144 bp text: one
     length-sorted stream cut into 1024-pair chunks through the
-    block-systolic entry (ops/myers_systolic.py, Kernel 2);
+    block-systolic entry (ops/myers_systolic.py, Kernel 2), or, for a
+    chunk of at least `systolic_max_pairs` pairs (the oversized-round
+    route; never at the default 1 << 30), through the pattern-block-
+    chunked entry (ops/myers_chunked.py);
   * beyond the caps: the host C++ Myers on a thread, concurrently.
 
 DNA backends: "myers-cuda" (the kernels; the default on the card),
-"myers" (the kernels' plain PyTorch versions, on any device) and "native"
-(the host C++ Myers for every pair).
+"myers" (the kernels' plain PyTorch versions, on any device), "native"
+(the host C++ Myers for every pair), "wavefront-cuda" (the min-plus
+wavefront kernel of ops/dna_wavefront.py) and "wavefront" (its plain
+version, ops/dna_align.py).  The two wavefront backends have no long
+route: every pair goes to a square pow2 bucket of its longer side, as in
+protein mode.
 
 In protein mode every pair with two non-empty sides goes to one square
 pow2 bucket of its longer side, each capped at max_batch_cells // L^2
@@ -38,6 +45,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.rpa import AlignValue, f32
+from ..ops.dna_align import batched_edit_distance, dna_alignment_stats
+from ..ops.dna_wavefront import batched_edit_distance_wavefront
+from ..ops.myers_chunked import batched_edit_distance_long
 from ..ops.myers_cuda import MAX_K, batched_edit_distance_short
 from ..ops.myers_systolic import batched_edit_distance_systolic
 from ..ops.host import WORD
@@ -45,7 +55,9 @@ from ..ops.protein_cuda import batched_protein_align_cuda
 from ..ops.protein_ref import batched_protein_align
 from ..utils.errors import TaxtkError
 
-DNA_BACKENDS = ("myers-cuda", "myers", "native")
+DNA_BACKENDS = ("myers-cuda", "myers", "native", "wavefront-cuda",
+                "wavefront")
+MYERS_BACKENDS = ("myers-cuda", "myers")
 PROTEIN_BACKENDS = ("wavefront-cuda", "wavefront")
 # device caps of the long route (taxtk/ops/pallas_myers.py): patterns up
 # to 96 kbp (96 systolic blocks, inside one 128-slot row) and texts up to
@@ -93,10 +105,11 @@ class BatchAligner:
     """mode: "dna" (edit distance + the reference's approximate stats) or
     "protein" (BLOSUM62 global alignment + traceback stats).
 
-    dna_backend: "myers-cuda" | "myers" | "native" (default: myers-cuda on
-    a CUDA device, myers on the CPU).  protein_backend: "wavefront-cuda" |
-    "wavefront" (default: wavefront-cuda on a CUDA device, wavefront on the
-    CPU).  device: "cuda" (default) or "cpu".
+    dna_backend: "myers-cuda" | "myers" | "native" | "wavefront-cuda" |
+    "wavefront" (default: myers-cuda on a CUDA device, myers on the CPU).
+    protein_backend: "wavefront-cuda" | "wavefront" (default:
+    wavefront-cuda on a CUDA device, wavefront on the CPU).  device:
+    "cuda" (default) or "cpu".
     """
 
     # align_pairs(deferred=True) returns a finish() callable (the engine's
@@ -134,13 +147,16 @@ class BatchAligner:
         self.long_pattern_threshold = MAX_K * WORD
         self.tpu_long_pattern_cap = LONG_PATTERN_CAP
         self.tpu_long_text_cap = LONG_TEXT_CAP
+        # long chunks of at least this many pairs take the chunked entry
+        # instead of the systolic one (taxtk's oversized-round route)
+        self.systolic_max_pairs = 1 << 30
         self.pairs_aligned = 0
         self.cells_computed = 0
         self.stage_seconds = {}  # per-phase accounting (kernel vs staging)
         # cross-round device-resident sequence pool (ops/seqpool.py),
         # shared by every aligner on this device
         self.pool_cache = None
-        if (self.dna_backend != "native" if mode == "dna"
+        if (self.dna_backend in MYERS_BACKENDS if mode == "dna"
                 else self.protein_backend == "wavefront-cuda"):
             from ..ops.seqpool import shared_pool_cache
 
@@ -190,6 +206,7 @@ class BatchAligner:
 
         dna = self.mode == "dna"
         native_all = dna and self.dna_backend == "native"
+        myers = dna and self.dna_backend in MYERS_BACKENDS
         work: List[int] = []
         dev_long: List[int] = []
         host_long: List[int] = []
@@ -198,7 +215,7 @@ class BatchAligner:
                 results[k] = self._empty_pair(len(a), len(b))
             elif native_all:
                 host_long.append(k)
-            elif dna and min(len(a), len(b)) > self.long_pattern_threshold:
+            elif myers and min(len(a), len(b)) > self.long_pattern_threshold:
                 if (
                     min(len(a), len(b)) <= self.tpu_long_pattern_cap
                     and max(len(a), len(b)) <= self.tpu_long_text_cap
@@ -257,8 +274,9 @@ class BatchAligner:
         return finish()
 
     def _dispatch_buckets(self, pairs, work, results, finishers):
-        if self.mode == "protein":
-            # one square bucket per pow2 of the longer side
+        if self.mode == "protein" or self.dna_backend not in MYERS_BACKENDS:
+            # protein and the DNA wavefront backends: one square bucket
+            # per pow2 of the longer side
             buckets = {}
             for k in work:
                 a, b = pairs[k]
@@ -287,7 +305,8 @@ class BatchAligner:
     def _dispatch_long(self, pairs, idxs_all, results, finishers):
         """Long pairs through the block-systolic kernel: ONE stream sorted
         by text length (descending) and cut into 1024-pair chunks, so each
-        launch holds pairs of similar lengths."""
+        launch holds pairs of similar lengths.  A chunk of at least
+        systolic_max_pairs pairs takes the chunked entry instead."""
         idxs = sorted(
             idxs_all,
             key=lambda k: -max(len(pairs[k][0]), len(pairs[k][1])),
@@ -321,7 +340,10 @@ class BatchAligner:
                         distance=f32(d), similarity=f32(matches)
                     )
 
-            dev, post = batched_edit_distance_systolic(
+            entry = (batched_edit_distance_systolic
+                     if B < self.systolic_max_pairs
+                     else batched_edit_distance_long)
+            dev, post = entry(
                 a_codes, b_codes, a_len, b_len, device=self.device,
                 lazy="device", pool_cache=self.pool_cache, plain=self._plain,
             )
@@ -369,19 +391,25 @@ class BatchAligner:
             return
 
         def fill_dna(dist, idxs=idxs, a_len=a_len, b_len=b_len):
-            lendiff = np.abs(a_len - b_len)
-            mismatches = dist - lendiff
-            matches = np.minimum(a_len, b_len) - mismatches
-            # pre-cast once; indexing a float32 array yields np.float32
-            dist32 = np.asarray(dist).astype(np.float32)
-            matches32 = matches.astype(np.float32)
+            # float32 arrays, so each value is an np.float32
+            stats = dna_alignment_stats(dist, a_len, b_len)
+            dist32, matches32 = stats["distance"], stats["similarity"]
             for r, k in enumerate(idxs):
                 results[k] = AlignValue(dist32[r], matches32[r])
 
-        dev, post = batched_edit_distance_short(
-            a_codes, b_codes, a_len, b_len, device=self.device,
-            lazy="device", pool_cache=self.pool_cache, plain=self._plain,
-        )
+        if self.dna_backend == "wavefront-cuda":
+            dev, post = batched_edit_distance_wavefront(
+                a_codes, b_codes, a_len, b_len, device=self.device,
+                lazy="device")
+        elif self.dna_backend == "wavefront":
+            dev, post = batched_edit_distance(
+                a_codes, b_codes, a_len, b_len, device=self.device,
+                lazy="device")
+        else:
+            dev, post = batched_edit_distance_short(
+                a_codes, b_codes, a_len, b_len, device=self.device,
+                lazy="device", pool_cache=self.pool_cache, plain=self._plain,
+            )
         finishers.append(_DevPending(dev, post, fill_dna))
         self._tick("device", t0)
 

@@ -5,8 +5,8 @@ Mirrors taxtk/ops/pallas_myers.py::batched_edit_distance_pallas_myers on
 its pool path (_call_pool): sequences are deduped into pool rows, the
 rows not yet resident are appended to the device pool, pattern match
 masks are built on the device from the packed pool columns
-(peq_from_codes, the port of _peq_from_codes), and one kernel launch
-reads each pair's text column and peq column in place.
+(myers_ref.peq_from_codes, the port of _peq_from_codes), and one kernel
+launch reads each pair's text column and peq column in place.
 
 `myers_short` is the wrapper: on CUDA tensors it launches the kernel and
 counts the launch in `myers_short.launches`; on CPU tensors it runs the
@@ -26,51 +26,12 @@ from . import cuda_build
 from .host import (
     ALPHA, WORD, _build_pool_wire, _dedupe_pool, _pool_indices, _pow2,
 )
-from .myers_ref import myers_wavefront, to_i32
+from .myers_chunked import batched_edit_distance_long
+from .myers_ref import myers_wavefront, peq_from_codes, unpack_columns
 from .seqpool import DevicePoolCache
 
 K_SET = (1, 2, 4, 8, 16, 32, 64)  # the kernel's template set of K
-MAX_K = K_SET[-1]  # 2048 bp: longer patterns take the systolic entry
-
-
-def peq_from_codes(pat_u: torch.Tensor, plen_pat: torch.Tensor, K: int,
-                   bits: int) -> torch.Tensor:
-    """Device-side peq build (taxtk/ops/pallas_myers.py::_peq_from_codes):
-    packed pattern codes [K*WORD*bits//8, Up] int8 -> match masks
-    [K, ALPHA, Up] int32 (u32 bits).  Positions at or past each pattern's
-    plen_pat are masked, which also silences 2-bit pad fields (code 3)."""
-    dev = pat_u.device
-    cpb = 8 // bits
-    mask = (1 << bits) - 1
-    W = K * WORD
-    idx = torch.arange(W, device=dev)
-    rowsb = pat_u.to(torch.int32).index_select(0, idx // cpb)  # [W, Up]
-    codes = (rowsb >> ((idx % cpb) * bits)[:, None]) & mask
-    valid = idx[:, None] < plen_pat.to(dev)[None, :]
-    weights = torch.ones(WORD, dtype=torch.int64, device=dev) << torch.arange(
-        WORD, device=dev)
-    planes = [
-        (((codes == c) & valid).reshape(K, WORD, -1).to(torch.int64)
-         * weights[None, :, None]).sum(1)
-        for c in range(ALPHA)
-    ]
-    return to_i32(torch.stack(planes, 1))
-
-
-def unpack_columns(pool: torch.Tensor, cols: torch.Tensor, n: int,
-                   bits: int) -> torch.Tensor:
-    """Codes [n, len(cols)] int64 of the packed pool columns `cols`
-    (lowest field = even position); rows past the pool read as pad."""
-    cpb = 8 // bits
-    rows = -(-max(n, 1) // cpb)
-    packed = pool[:rows].index_select(1, cols.long()).to(torch.int64) & 0xFF
-    if packed.shape[0] < rows:
-        pad = torch.full((rows - packed.shape[0], packed.shape[1]), 0xFF,
-                         dtype=torch.int64, device=pool.device)
-        packed = torch.cat([packed, pad])
-    shifts = torch.arange(cpb, device=pool.device) * bits
-    codes = (packed[:, None, :] >> shifts[None, :, None]) & ((1 << bits) - 1)
-    return codes.reshape(rows * cpb, -1)[: max(n, 1)]
+MAX_K = K_SET[-1]  # 2048 bp: longer patterns take the chunked entry
 
 
 def myers_short_plain(pool, txt_col, peq, pat_idx, nlen, mlen, K, bits):
@@ -153,8 +114,9 @@ def short_inputs(a_codes, b_codes, a_len, b_len, device,
     K = _pow2(max(1, -(-int(m_len.max(initial=1)) // WORD)))
     if K > MAX_K:
         raise ValueError(
-            f"pattern of {int(m_len.max())} bp exceeds the short entry's "
-            f"{MAX_K * WORD} bp; use the systolic entry"
+            f"pattern of {int(m_len.max())} bp exceeds Kernel 1's "
+            f"{MAX_K * WORD} bp; batched_edit_distance_short hands such "
+            f"batches to the chunked entry"
         )
     Np = -(-N // 4) * 4  # the one-off text pool: whole bytes at 2 or 4 bits
 
@@ -201,14 +163,20 @@ def batched_edit_distance_short(
     lazy=False,
     plain: bool = False,
 ):
-    """Exact batched global edit distance for pairs whose shorter side is
-    at most 2048 bp (port of batched_edit_distance_pallas_myers).
+    """Exact batched global edit distance (port of
+    batched_edit_distance_pallas_myers).  Batches whose shorter sides
+    reach past 2048 bp (K > 64 words) go to the pattern-block-chunked
+    entry, myers_chunked.batched_edit_distance_long, as in taxtk.
 
     pool_cache: sequence rows stay device-resident across calls; without
     one the round's rows ship as a one-off pool.  plain=True runs the
     plain version on any device (the aligner's "myers" backend).
     lazy="device" returns (device int32 [B] tensor, post) where post maps
     the host copy to distances; otherwise the distances as numpy."""
+    if int(np.minimum(a_len, b_len).max(initial=1)) > MAX_K * WORD:
+        return batched_edit_distance_long(
+            a_codes, b_codes, a_len, b_len, device=device,
+            pool_cache=pool_cache, lazy=lazy, plain=plain)
     args, post = short_inputs(a_codes, b_codes, a_len, b_len,
                               resolve_device(device), pool_cache)
     out = myers_short_plain(*args) if plain else myers_short(*args)

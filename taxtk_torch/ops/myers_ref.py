@@ -96,38 +96,86 @@ def to_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
-def myers_wavefront(peq, text, m_len, n_len) -> torch.Tensor:
-    """The recurrence of taxtk/ops/myers_batch.py::_myers_kernel.
+def peq_from_codes(pat_u: torch.Tensor, plen_pat: torch.Tensor, K: int,
+                   bits: int) -> torch.Tensor:
+    """Device-side peq build (taxtk/ops/pallas_myers.py::_peq_from_codes):
+    packed pattern codes [K*WORD*bits//8, Up] int8 -> match masks
+    [K, ALPHA, Up] int32 (u32 bits).  Positions at or past each pattern's
+    plen_pat are masked, which also silences 2-bit pad fields (code 3)."""
+    dev = pat_u.device
+    cpb = 8 // bits
+    mask = (1 << bits) - 1
+    W = K * WORD
+    idx = torch.arange(W, device=dev)
+    rowsb = pat_u.to(torch.int32).index_select(0, idx // cpb)  # [W, Up]
+    codes = (rowsb >> ((idx % cpb) * bits)[:, None]) & mask
+    valid = idx[:, None] < plen_pat.to(dev)[None, :]
+    weights = torch.ones(WORD, dtype=torch.int64, device=dev) << torch.arange(
+        WORD, device=dev)
+    planes = [
+        (((codes == c) & valid).reshape(K, WORD, -1).to(torch.int64)
+         * weights[None, :, None]).sum(1)
+        for c in range(ALPHA)
+    ]
+    return to_i32(torch.stack(planes, 1))
 
-    peq [K, ALPHA, B] (int32 or int64 holding u32 bits), text [N, B]
-    codes (any code >= ALPHA matches nothing), m_len/n_len [B]
-    -> [B] int64: score harvested at j == n_len, max(m_len, n_len) where
-    no harvest happens (n_len == 0).  m_len == 0 is pinned by callers."""
-    K, A, B = peq.shape
+
+def unpack_columns(pool: torch.Tensor, cols: torch.Tensor, n: int,
+                   bits: int) -> torch.Tensor:
+    """Codes [n, len(cols)] int64 of the packed pool columns `cols`
+    (lowest field = even position); rows past the pool read as pad."""
+    cpb = 8 // bits
+    rows = -(-max(n, 1) // cpb)
+    packed = pool[:rows].index_select(1, cols.long()).to(torch.int64) & 0xFF
+    if packed.shape[0] < rows:
+        pad = torch.full((rows - packed.shape[0], packed.shape[1]), 0xFF,
+                         dtype=torch.int64, device=pool.device)
+        packed = torch.cat([packed, pad])
+    shifts = torch.arange(cpb, device=pool.device) * bits
+    codes = (packed[:, None, :] >> shifts[None, :, None]) & ((1 << bits) - 1)
+    return codes.reshape(rows * cpb, -1)[: max(n, 1)]
+
+
+def myers_block_step(peq_blk, text, mword, mbit, nlen, score, res, hin):
+    """One block of pattern words over the whole text: the recurrence of
+    one launch of taxtk/ops/pallas_myers.py::_make_kernel_chunked.
+
+    peq_blk [Kb, ALPHA, B] (int32 or int64 holding u32 bits) is this
+    block's pattern words; text [N, B] codes (a code >= ALPHA matches
+    nothing); mword/mbit [B] place the pattern-end cell relative to the
+    block (a word outside [0, Kb) means the pattern ends in another block);
+    nlen [B]; score/res [B] are carried in from the previous block; hin
+    [N, B] holds the carries into word 0 at each text position, ph | mh<<1.
+    Pv and Mv start fresh.  The score moves only while j <= nlen, since
+    every later block harvests it again at j == nlen.
+    Returns (score, res) [B] int32 and hout [N, B] int8, the carries out of
+    word Kb-1."""
+    K, A, B = peq_blk.shape
     N = text.shape[0]
-    dev = peq.device
+    dev = peq_blk.device
     i64 = torch.int64
     peqz = torch.cat(
-        [peq.to(i64) & M32, torch.zeros((K, 1, B), dtype=i64, device=dev)], 1
-    )
+        [peq_blk.to(i64) & M32, torch.zeros((K, 1, B), dtype=i64, device=dev)],
+        1)
     text = text.to(i64).clamp(0, A)
-    m_len = m_len.to(i64)
-    n_len = n_len.to(i64)
+    hin = hin.to(i64)
+    mword = mword.to(i64)
+    nlen = nlen.to(i64)
     ks = torch.arange(K, device=dev)
-    kk = torch.clamp(m_len - 1, min=0) >> 5  # word holding the last cell
-    bit = torch.ones_like(m_len) << ((m_len - 1) & 31)
-    hm = torch.where(
-        (ks[:, None] == kk[None, :]) & (m_len[None, :] > 0), bit[None, :], 0
-    )
+    hm = torch.where(ks[:, None] == mword[None, :],
+                     torch.ones_like(mword) << mbit.to(i64), 0)
+    kk = mword.clamp(0, K - 1)  # the word whose char the score follows
     pv = torch.full((K, B), M32, dtype=i64, device=dev)
     mv = torch.zeros((K, B), dtype=i64, device=dev)
-    top_ph = torch.ones((1, B), dtype=i64, device=dev)  # above word 0
-    top_mh = torch.zeros((1, B), dtype=i64, device=dev)
-    cin_ph = top_ph.expand(K, B)
-    cin_mh = top_mh.expand(K, B)
-    score = m_len.clone()
-    res = torch.maximum(m_len, n_len)
+    cin_ph = torch.zeros((K, B), dtype=i64, device=dev)
+    cin_mh = torch.zeros((K, B), dtype=i64, device=dev)
+    score = score.to(i64)
+    res = res.to(i64)
+    hout = torch.zeros((N, B), dtype=torch.int8, device=dev)
     for s in range(N + K - 1):
+        if s < N:  # word 0 takes char s with the carries of hin[s]
+            cin_ph[0] = hin[s] & 1
+            cin_mh[0] = (hin[s] >> 1) & 1
         j = s - ks  # char of each word at this step
         valid = ((j >= 0) & (j < N))[:, None]
         tc = text.index_select(0, j.clamp(0, N - 1))  # [K, B]
@@ -144,11 +192,33 @@ def myers_wavefront(peq, text, m_len, n_len) -> torch.Tensor:
         pv = torch.where(valid, (mh_shift | ~(xv | ph_shift)) & M32, pv)
         mv = torch.where(valid, ph_shift & xv, mv)
         # carries out of word k feed word k+1 at the next step (same char)
-        cin_ph = torch.cat([top_ph, ph[:-1] >> 31])
-        cin_mh = torch.cat([top_mh, mh[:-1] >> 31])
-        jp = s - kk  # char the last-cell word handled at this step
-        score = score + torch.where((jp >= 0) & (jp < N), delta, 0)
-        res = torch.where(jp + 1 == n_len, score, res)
+        cin_ph[1:] = ph[:-1] >> 31
+        cin_mh[1:] = mh[:-1] >> 31
+        if s >= K - 1:  # word Kb-1 finished char s - (Kb-1)
+            hout[s - K + 1] = ((ph[-1] >> 31) | ((mh[-1] >> 31) << 1)).to(
+                torch.int8)
+        jp = s - kk + 1  # 1-based char the score word handled at this step
+        live = (jp >= 1) & (jp <= N)
+        score = score + torch.where(live & (jp <= nlen), delta, 0)
+        res = torch.where(live & (jp == nlen), score, res)
+    return score.to(torch.int32), res.to(torch.int32), hout
+
+
+def myers_wavefront(peq, text, m_len, n_len) -> torch.Tensor:
+    """The recurrence of taxtk/ops/myers_batch.py::_myers_kernel: the whole
+    pattern as one block (myers_block_step) under the top carries ph = 1,
+    mh = 0.
+
+    peq [K, ALPHA, B] (int32 or int64 holding u32 bits), text [N, B]
+    codes (any code >= ALPHA matches nothing), m_len/n_len [B]
+    -> [B] int32: score harvested at j == n_len, max(m_len, n_len) where
+    no harvest happens (n_len == 0).  m_len == 0 is pinned by callers."""
+    N, B = text.shape
+    m_len = m_len.to(torch.int64)
+    _score, res, _hout = myers_block_step(
+        peq, text, (m_len - 1) >> 5, (m_len - 1) & 31, n_len, m_len,
+        torch.maximum(m_len, n_len.to(torch.int64)),
+        torch.ones((N, B), dtype=torch.int8, device=peq.device))
     return res
 
 

@@ -25,8 +25,7 @@ from . import cuda_build
 from .host import (
     ALPHA, LANE, STAG, WORD, _dedupe_pool, _pack_systolic, _pow2,
 )
-from .myers_cuda import peq_from_codes, unpack_columns
-from .myers_ref import M32
+from .myers_ref import M32, peq_from_codes, unpack_columns
 from .seqpool import DevicePoolCache
 
 DEFAULT_KC = 32  # pattern words per slot (1024 bp), as in taxtk

@@ -101,7 +101,7 @@ def test_engine_gff3_and_log_match_taxtk(tmp_path, monkeypatch):
     assert got[0].count("\n") > 3 and got[1]
 
 
-@pytest.mark.parametrize("backend", ["myers", "native"])
+@pytest.mark.parametrize("backend", ["myers", "native", "wavefront"])
 def test_cli_stdout_matches_taxtk(refpack, monkeypatch, capsys, backend):  # noqa: F811
     monkeypatch.setenv("TAXATORTK_TAXONOMY_NCBI", str(refpack["dir"]))
     argv = [
@@ -109,8 +109,8 @@ def test_cli_stdout_matches_taxtk(refpack, monkeypatch, capsys, backend):  # noq
         "-f", refpack["refdata"], "-i", refpack["refdata"] + ".fai",
         "-x", "0.5", "-o", "0",
     ]
-    rc_ref, want = run_cli(jax_cli.main, argv, refpack["alignments"],
-                           monkeypatch, capsys)
+    rc_ref, want = run_cli(jax_cli.main, argv + ["--dna-backend", backend],
+                           refpack["alignments"], monkeypatch, capsys)
     rc, got = run_cli(
         torch_cli.main, argv + ["--device", "cpu", "--dna-backend", backend],
         refpack["alignments"], monkeypatch, capsys)

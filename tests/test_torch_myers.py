@@ -135,19 +135,21 @@ def test_short_entry_matches_pallas(alphabet):
 
 
 def test_short_entry_k64_and_cap():
-    """K = 64 (patterns up to 2048 bp) in the plain version; longer
-    patterns belong to the systolic entry."""
+    """K = 64 (patterns up to 2048 bp) in the plain version; past Kernel
+    1's cap the entry hands the batch to the chunked entry, as taxtk's
+    does, and Kernel 1's input prep refuses it."""
     rng = np.random.default_rng(3)
     ac, bc, al, bl = _batch(rng, 3, (1025, 1100), (1000, 1200), 4)
     got = myers_cuda.batched_edit_distance_short(ac, bc, al, bl,
                                                  device="cpu")
     np.testing.assert_array_equal(
         got, np.asarray(batched_edit_distance_myers(ac, bc, al, bl)))
-    with pytest.raises(ValueError, match="systolic"):
-        myers_cuda.batched_edit_distance_short(
-            np.zeros((1, 2049), np.uint8), np.zeros((1, 2049), np.uint8),
-            np.array([2049], np.int32), np.array([2049], np.int32),
-            device="cpu")
+    long_pair = (np.zeros((1, 2049), np.uint8), np.ones((1, 2049), np.uint8),
+                 np.array([2049], np.int32), np.array([2049], np.int32))
+    assert myers_cuda.batched_edit_distance_short(
+        *long_pair, device="cpu").tolist() == [2049]
+    with pytest.raises(ValueError, match="chunked entry"):
+        myers_cuda.short_inputs(*long_pair, "cpu")
 
 
 def test_wrappers_use_plain_version_on_cpu():
