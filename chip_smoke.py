@@ -11,17 +11,23 @@ Phases, one line each:
   kernels  each Myers kernel against its plain PyTorch version on the card
            and against the port's host C++ Myers, at main-path shapes, on
            the one-off pool and on the shared pool cache, with CUDA-event
-           times (the chunked kernel against its plain version launch by
-           launch, at two shapes); the DNA wavefront kernel against the
-           host C++ Myers and its plain version at the aligner's bucket
-           shapes;
+           times (the systolic kernel's plain version on the pool cache
+           only, the one-off layout held against the pool-cache output,
+           and the kernel also at each KW its shape admits, forced; the
+           chunked kernel against its plain version launch by launch,
+           at two shapes); the DNA wavefront kernel against the host C++
+           Myers and its plain version at the aligner's bucket shapes;
   engine   the taxator CLI (nucleotide RPA) on a 300-contig workload of
            1-20 kbp contigs, with the default myers-cuda backend, with
            --dna-backend native, with --dna-backend wavefront-cuda, and with
            myers-cuda and the aligner's systolic_max_pairs = 0 (the
            oversized-round route through the chunked kernel); every GFF3
            must be byte-identical to native's and each kernel of each path
-           must have launched;
+           must have launched; the myers-cuda run times each systolic
+           launch with CUDA events and keeps its first 1024-pair launch;
+  kernels  the systolic kernel at that launch, the engine's own shape,
+           against its plain version and the host C++ Myers, timed at
+           both KW;
   protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
            against their plain version, element for element, and their
            mutual scores against the host C++ NW, at main-path shapes on
@@ -59,7 +65,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
-OPS_PER_WORD_CHAR = 20  # essential Myers ops per 32-cell word per char
+# essential instructions of the Myers recurrence per 32-cell word per char,
+# after fusion: the word's match mask (one lookup or select), its MH
+# carry-in OR, Xv, Eq & Pv, the add, Xh and Ph (one LOP3 each), Mh, the PH
+# and MH shift-ins (one funnel shift or IMAD each, carry included), Pv
+# (LOP3), Mv, and the MH carry-out shift (PH's folds into the next word's
+# funnel shift)
+OPS_PER_WORD_CHAR = 13
 # essential INT32-pipe ops per protein DP cell after fusion: one add
 # (diagonal + substitution), one add-max (max(left, up) + gap, Hopper's
 # VIADDMAX), one max with the diagonal, three compares (diagonal wins,
@@ -73,7 +85,17 @@ OPS_PER_CELL = 9
 DNA_OPS_PER_CELL = 4
 KERNEL_SOURCES = ["myers_short", "myers_systolic", "myers_chunked",
                   "dna_wavefront", "protein_wavefront", "protein_swar"]
-INT32_LANES = 132 * 64  # H100 SXM: SMs x INT32 lanes per SM per clock
+# H100 SXM: SMs x integer instructions per SM per clock.  Each of an SM's
+# four sub-partitions issues one warp instruction a clock; its ALU pipe
+# (logic, add, shift, compare: 16 lanes) and its FMA pipe (IMAD, which the
+# compiler also uses for adds, moves and shifts by a constant: 16 lanes)
+# together take 32 lanes of integer work a clock, the rate of the data
+# sheet's 67 TFLOP/s float32 (an FMA being two flops)
+INT32_LANES = 132 * 128
+# template arguments of the kernels that have them (myers_short<K, BITS>,
+# myers_chunked<KB = 64, BITS>, myers_systolic<BITS, KW> at KC = 32)
+TEMPLATE_ARGS = {"myers_short": ("K", "bits"), "myers_chunked": ("K", "bits"),
+                 "myers_systolic": ("bits", "KW")}
 
 
 def fail(msg: str) -> None:
@@ -119,10 +141,11 @@ def timed(fn):
 
 def bound(m, n, bits, int_rate):
     """Least time (ms) for the Myers work of these pairs, and what bounds
-    it: the essential ops (20 per 32-cell word per char, over the pairs'
-    own lengths) over the INT32 issue rate, against the bytes each input
-    and output moves once (packed text, peq words, 4 int32 of metadata and
-    the int32 result per pair) over the memory rate."""
+    it: the essential ops (OPS_PER_WORD_CHAR per 32-cell word per char,
+    over the pairs' own lengths) over the integer issue rate, against the
+    bytes each input and output moves once (packed text, peq words, 4
+    int32 of metadata and the int32 result per pair) over the memory
+    rate."""
     m = np.asarray(m, np.int64)
     n = np.asarray(n, np.int64)
     words = -(-m // 32)
@@ -194,10 +217,8 @@ def phase_build():
     regs = {}
     for name in KERNEL_SOURCES:
         # ptxas -v: "Compiling entry function '..._kernelILi64ELi2EE...'"
-        # (myers_short<K, BITS>, myers_chunked<KB = 64, BITS>;
-        # myers_systolic<BITS> at KC = 32; dna_wavefront and the protein
-        # kernels are not templates), then the spill line, then "Used N
-        # registers"
+        # (TEMPLATE_ARGS names the template arguments), then the spill
+        # line, then "Used N registers"
         key = None
         for ln in cuda_build.ptxas_report(name).splitlines():
             if "Compiling entry function" not in ln:
@@ -212,7 +233,7 @@ def phase_build():
             key = name
             if t:
                 nums = re.findall(r"Li(\d+)E", t.group(1))
-                names = ("K", "bits") if len(nums) == 2 else ("bits",)
+                names = TEMPLATE_ARGS[name]
                 key = name + "<" + ",".join(
                     f"{k}={v}" for k, v in zip(names, nums)) + ">"
             regs[key] = {}
@@ -223,16 +244,42 @@ def phase_build():
     return regs
 
 
+def _systolic_kw_ms(args, want, reps):
+    """Kernel 2 on `args` at each KW its largest pair admits, the wrapper's
+    kernel_geometry forced: each output held against `want` (the plain
+    version's), and the CUDA-event median of each, so that every run shows
+    whether the wrapper's choice of KW was the faster one."""
+    import torch
+
+    from taxtk_torch.ops import myers_systolic as ms
+
+    nb = args[-2]
+    out = {}
+    for kw in (2, 3):
+        warps = -(-nb // kw)
+        if warps > ms.MAX_WARPS:
+            continue
+        with mock.patch.object(ms, "kernel_geometry",
+                               lambda _nb, kw=kw, w=warps: (kw, w)):
+            if not torch.equal(ms.myers_systolic(*args), want):
+                fail(f"systolic kernel at KW={kw} != plain version")
+            out[f"KW={kw}"] = cuda_ms(lambda: ms.myers_systolic(*args), reps)
+    return out
+
+
 def _check(kind, pairs, label, int_rate, reps, record):
-    """One case of a kernel, on both input layouts of its entry: the
-    one-off pool (no cache) and a fresh shared DevicePoolCache, the main
-    path's layout (pool stride = cache capacity, columns from dedupe and
-    slots, peq sliced from the tall pool, the systolic height ratchet).
-    On each, the result on the card is held against the plain version on
-    the same tensors (every output element) and, after the entry's post
-    step, against the host C++ Myers.  Then, on the cache layout, the
-    kernel's CUDA-event median over `reps` launches, the plain version's
-    time and the bound."""
+    """One case of a kernel, on both input layouts of its entry: a fresh
+    shared DevicePoolCache, the main path's layout (pool stride = cache
+    capacity, columns from dedupe and slots, peq sliced from the tall pool,
+    the systolic height ratchet), and the one-off pool (no cache).  On
+    each, the result on the card is held against the plain version on the
+    same tensors (every output element) and, after the entry's post step,
+    against the host C++ Myers; the systolic kernel's plain version (some
+    2-10 s a shape) runs on the pool-cache layout only, and its one-off
+    layout's output is held against the pool-cache output (the same slot
+    layout) instead.  Then, on the cache layout, the kernel's CUDA-event
+    median over `reps` launches (the systolic kernel's also at each KW),
+    the plain version's time and the bound."""
     import torch
 
     from taxtk_torch.native import myers_batch
@@ -247,35 +294,85 @@ def _check(kind, pairs, label, int_rate, reps, record):
         inputs, kernel, plain_fn = (myers_systolic.systolic_inputs,
                                     myers_systolic.myers_systolic,
                                     myers_systolic.myers_systolic_plain)
+    plain_once = kind == "systolic"
     ac, bc, al, bl = to_batch(pairs)
     want = myers_batch(pairs)
     err = 0
-    for layout in ("one-off pool", "pool cache"):
+    for layout in ("pool cache", "one-off pool"):
         cache = DevicePoolCache("cuda") if layout == "pool cache" else None
         args, post = inputs(ac, bc, al, bl, torch.device("cuda"),
                             pool_cache=cache)
         got = kernel(*args)
-        plain, plain_ms = timed(lambda: plain_fn(*args))
-        if not torch.equal(got, plain):
-            fail(f"{kind} kernel != plain version on {label} ({layout}): "
-                 f"{int((got != plain).sum())} outputs differ")
+        if layout == "pool cache":
+            cache_args, cache_got = args, got
+        if plain_once and layout == "one-off pool":
+            if not torch.equal(got, cache_got):
+                fail(f"{kind} kernel differs between layouts on {label}")
+        else:
+            plain, ms = timed(lambda: plain_fn(*args))
+            if not torch.equal(got, plain):
+                fail(f"{kind} kernel != plain version on {label} "
+                     f"({layout}): {int((got != plain).sum())} outputs "
+                     f"differ")
+            err = max(err, int((got - plain).abs().max()))
+            if layout == "pool cache":
+                plain_ms = ms
         if not np.array_equal(post(got.cpu().numpy()), want):
             fail(f"{kind} kernel != host C++ Myers on {label} ({layout})")
-        err = max(err, int((got - plain).abs().max()))
-    bits = args[-1]
+    bits = cache_args[-1]
     rec = dict(label=label, pairs=len(pairs), bits=bits, max_abs_err=err,
-               ms=cuda_ms(lambda: kernel(*args), reps), plain_ms=plain_ms)
+               plain_layouts=1 if plain_once else 2,
+               ms=cuda_ms(lambda: kernel(*cache_args), reps),
+               plain_ms=plain_ms)
+    if plain_once:
+        rec["ms_by_kw"] = _systolic_kw_ms(cache_args, cache_got, reps)
     rec["bound_ms"], rec["bound_by"] = bound(
         np.minimum(al, bl), np.maximum(al, bl), bits, int_rate)
     record.append(rec)
     print(f"kernels: {kind} {label}: {json.dumps(rec)}", flush=True)
 
 
+def _check_systolic_engine(cap, int_rate, reps, record):
+    """Kernel 2 at the engine's own shape: the arguments of the myers-cuda
+    engine run's first 1024-pair long-route launch, as phase_engine
+    captured them.  The kernel against the plain version (every output
+    element) and, after post, the host C++ Myers; its CUDA-event median
+    (also at each KW), the plain version's time and the bound.  Recorded first: it is row 2's
+    main shape."""
+    import torch
+
+    from taxtk_torch.native import myers_batch
+    from taxtk_torch.ops import myers_systolic
+
+    args, post, pairs = cap["args"], cap["post"], cap["pairs"]
+    got = myers_systolic.myers_systolic(*args)
+    plain, plain_ms = timed(lambda: myers_systolic.myers_systolic_plain(*args))
+    if not torch.equal(got, plain):
+        fail(f"systolic kernel != plain version at the engine shape: "
+             f"{int((got != plain).sum())} outputs differ")
+    if not np.array_equal(post(got.cpu().numpy()), myers_batch(pairs)):
+        fail("systolic kernel != host C++ Myers at the engine shape")
+    al = np.array([len(a) for a, _ in pairs])
+    bl = np.array([len(b) for _, b in pairs])
+    m, n = np.minimum(al, bl), np.maximum(al, bl)
+    bits = args[-1]
+    label = f"engine {len(pairs)}x{m.min()}-{m.max()}"
+    rec = dict(label=label, pairs=len(pairs), bits=bits,
+               text_bp=[int(n.min()), int(n.max())],
+               max_abs_err=int((got - plain).abs().max()),
+               ms=cuda_ms(lambda: myers_systolic.myers_systolic(*args), reps),
+               plain_ms=plain_ms,
+               ms_by_kw=_systolic_kw_ms(args, plain, reps))
+    rec["bound_ms"], rec["bound_by"] = bound(m, n, bits, int_rate)
+    record.insert(0, rec)
+    print(f"kernels: systolic {label}: {json.dumps(rec)}", flush=True)
+
+
 def chunked_bound(n, words, launches, Kb, bits, int_rate):
     """Least time (ms) of chunked-kernel launches, and what bounds it: the
-    essential Myers ops (20 per 32-cell word per char) of `words` [B]
-    pattern words per pair over its own text, over the INT32 issue rate,
-    against the bytes `launches` [B] launches move once per pair (packed
+    essential Myers ops (OPS_PER_WORD_CHAR per 32-cell word per char) of
+    `words` [B] pattern words per pair over its own text, over the integer
+    issue rate, against the bytes `launches` [B] launches move once per pair (packed
     text, the block's Kb peq words, the carry stream read and written, one
     byte each per char, and nine int32 of per-pair input and output) over
     the memory rate."""
@@ -360,7 +457,7 @@ def _check_chunked(pairs, label, int_rate, reps, record, plain):
 def wavefront_bound(al, bl, int_rate):
     """Least time (ms) for the min-plus DP of these pairs, and what bounds
     it: DNA_OPS_PER_CELL INT32 ops per cell of each pair's own alen x blen
-    over the INT32 issue rate, against the bytes moved once (both sides'
+    over the integer issue rate, against the bytes moved once (both sides'
     codes, the two int32 lengths and the int32 result) over the memory
     rate."""
     al = np.asarray(al, np.int64)
@@ -404,7 +501,9 @@ def _check_wavefront(pairs, L, label, int_rate, reps, record):
 def phase_kernels(int_rate, long_shapes=((64, 25_000), (16, 50_000),
                                          (4, 98_000))):
     """Each kernel against its plain version and the host C++ Myers.  The
-    first case of each kernel is its main-path shape and gives its times."""
+    first case of each kernel is its main-path shape and gives its times
+    (Kernel 2's main shape, the engine's own launch, is checked after the
+    engine phase and put first)."""
     rng = np.random.default_rng(1234)
     short, long_, chunked, wave = [], [], [], []
     # Kernel 1: the largest bucket the aligner forms at 2048 bp (its
@@ -480,12 +579,71 @@ def run_cli(argv, aln_path):
     return out.getvalue(), secs, stats
 
 
+class SystolicCapture:
+    """Kernel 2 inside one engine run, seen from outside its wrapper (whose
+    count it leaves alone): CUDA events recorded on the stream around each
+    launch (the wrapper's `_lib()` call, patched), with no sync inside the
+    run, and a copy of the arguments of the first launch of `B` pairs (the
+    entry's `systolic_inputs`, patched)."""
+
+    def __init__(self, B=1024):
+        self.B = B
+        self.events = []
+        self.first = None
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+
+        from taxtk_torch.ops import myers_systolic
+
+        inputs, lib = myers_systolic.systolic_inputs, myers_systolic._lib
+
+        def capture_inputs(a_codes, b_codes, a_len, b_len, *rest, **kw):
+            args, post = inputs(a_codes, b_codes, a_len, b_len, *rest, **kw)
+            if self.first is None and len(a_len) == self.B:
+                self.first = dict(
+                    args=tuple(x.clone() if torch.is_tensor(x) else x
+                               for x in args),
+                    post=post,
+                    pairs=[(a_codes[i, : a_len[i]], b_codes[i, : b_len[i]])
+                           for i in range(self.B)])
+            return args, post
+
+        def timed_lib():
+            fn = lib()
+
+            def launch(*a):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                rc = fn(*a)
+                end.record()
+                self.events.append((start, end))
+                return rc
+            return launch
+
+        with mock.patch.object(myers_systolic, "systolic_inputs",
+                               capture_inputs), \
+                mock.patch.object(myers_systolic, "_lib", timed_lib):
+            yield self
+
+    def kernel_ms(self):
+        """Each launch's CUDA-event time (ms), after one sync."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
 def phase_engine(n_contigs=300):
     """The port's main paths on make_workload: nucleotide taxator with
     myers-cuda, with --dna-backend native, with wavefront-cuda, and with
     myers-cuda and the aligner's systolic_max_pairs = 0 (taxtk's
     oversized-round route, which has no CLI flag).  Each GFF3 must equal
-    native's.  Returns each kernel's launch count from its path's run."""
+    native's.  The myers-cuda run also times each Kernel 2 launch and keeps
+    the first 1024-pair launch's arguments (SystolicCapture).  Returns each
+    kernel's launch count from its path's run, and that capture."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload
 
@@ -533,8 +691,14 @@ def phase_engine(n_contigs=300):
         gen_s = time.time() - t
         os.environ["TAXATORTK_TAXONOMY_NCBI"] = tax_dir
         argv = ["-g", mapping, "-q", qfa, "-f", rfa, "-i", rfa + ".fai"]
-        runs["myers-cuda"] = counted(lambda: run_cli(argv, aln),
-                                     ("myers_short", "myers_systolic"))
+        capture = SystolicCapture()
+        with capture.active():
+            runs["myers-cuda"] = counted(lambda: run_cli(argv, aln),
+                                         ("myers_short", "myers_systolic"))
+        k2_ms = capture.kernel_ms()
+        if capture.first is None or len(k2_ms) != launches["myers_systolic"]:
+            fail("the myers-cuda run made no 1024-pair Kernel 2 launch, or "
+                 "its launches were not all timed")
         runs["native"] = counted(
             lambda: run_cli(argv + ["--dna-backend", "native"], aln), ())
         runs["oversized"] = counted(run_oversized, ("myers_chunked",))
@@ -553,14 +717,16 @@ def phase_engine(n_contigs=300):
     for label, ((_, secs, stats), counts) in runs.items():
         rec[label] = dict(engine_s=secs, mbp_per_h=mbp_h(total_qbp, secs),
                           launches=counts, stats=stats)
+    rec["myers-cuda"]["myers_systolic_ms"] = k2_ms
+    rec["myers-cuda"]["myers_systolic_ms_sum"] = sum(k2_ms)
     print(f"engine: {json.dumps(rec)}", flush=True)
-    return launches
+    return launches, capture.first
 
 
 def protein_bound(al, bl, int_rate):
     """Least time (ms) for the protein DP of these pairs, and what bounds
     it: OPS_PER_CELL INT32 ops per cell of each pair's own alen x blen
-    over the INT32 issue rate, against the bytes moved once (the codes of
+    over the integer issue rate, against the bytes moved once (the codes of
     both sides, four int32 of per-pair input, the int32 [3, B] result)
     over the memory rate.  v5 and v6 do the same work."""
     al = np.asarray(al, np.int64)
@@ -852,7 +1018,8 @@ def main() -> int:
     int_rate = INT32_LANES * clock_mhz * 1e6
     phase_build()
     short, long_, chunked, wave = phase_kernels(int_rate)
-    launches = phase_engine()
+    launches, engine_launch = phase_engine()
+    _check_systolic_engine(engine_launch, int_rate, 5, long_)
     prot = phase_protein(int_rate)
     phase_golden()
     launches.update(phase_protein_engine())

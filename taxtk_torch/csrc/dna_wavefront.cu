@@ -31,14 +31,14 @@
 // strip a warp waits for is always held by a running warp: no deadlock, in
 // any block order.
 //
-// What bounds it on this card: integer issue.  Each cell is 4 essential
-// INT32 ops: the compare a_i != b_j, the add D(i-1, j-1) + cost, the min of
-// up and left, and Hopper's DPX add-min __viaddmin_s32 (min(x + 1, y)),
-// which fuses the +1 with the last min.  The H100 issues 132 SMs x 64
-// INT32 lanes per clock.  The overheads this design pays: two shuffles per
-// R cells, the skew of 31 lane-steps per strip, and the strip-to-strip lag
-// of at least 64 columns, which leaves SMs idle while a single long pair's
-// pipeline fills.
+// What bounds it on this card: integer issue.  Each cell is 4 essential INT32
+// ops: the compare a_i != b_j, the add D(i-1, j-1) + cost, the min of up and
+// left, and Hopper's DPX add-min __viaddmin_s32 (min(x + 1, y)), which fuses
+// the +1 with the last min.  The H100 issues 132 SMs x 128 lanes of integer
+// instructions per clock.  The overheads this design pays: two shuffles per R
+// cells, the skew of 31 lane-steps per strip, and the strip-to-strip lag of at
+// least 64 columns, which leaves SMs idle while a single long pair's pipeline
+// fills.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -25,13 +25,13 @@
 // carry stream hin/hout [N, B] int8 is coalesced across the pairs of a
 // warp (pair-minor).
 //
-// What bounds it on this card: integer issue.  Each (char, word) step is
-// ~20 dependent 32-bit logic/add ops for 32 DP cells (132 SMs x 64 INT32
-// lanes per clock); the carry stream adds 2 bytes per pair per char per
-// block.  Design response, as Kernel 1 (csrc/myers_short.cu): KB is a
-// template parameter so Pv/Mv live in registers (at KB = 64 that is 128
-// of the 255 registers a thread may hold), and one warp per block spreads
-// a small batch over as many SMs as it has warps.
+// What bounds it on this card: integer issue.  Each (char, word) step is ~13
+// essential 32-bit logic/add/shift instructions for 32 DP cells (132 SMs x 128
+// lanes per clock, ALU and FMA pipes); the carry stream adds 2 bytes per pair
+// per char per block.  Design response, as Kernel 1 (csrc/myers_short.cu): KB
+// is a template parameter so Pv/Mv live in registers (at KB = 64 that is 128
+// of the 255 registers a thread may hold), and one warp per block spreads a
+// small batch over as many SMs as it has warps.
 
 #include <cstdint>
 #include <cuda_runtime.h>

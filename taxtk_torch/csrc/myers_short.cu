@@ -19,15 +19,15 @@
 // and the pattern match masks from the device-built planes
 // peq[K, ALPHA, U] through pat_idx[pair].  Nothing is staged per launch.
 //
-// What bounds it on this card: integer issue.  Each (char, word) step is
-// ~20 dependent 32-bit logic/add ops for 32 DP cells; the H100 issues
-// 132 SMs x 64 INT32 lanes per clock.  The per-word peq load (4 B per
-// word per char, from L1/L2) is the second limit.  Design response: K is
-// a template parameter so Pv/Mv live in registers (zero pad words are
-// inert, as taxtk's _quantize_K notes), and the thread stops at its own
-// n_len instead of running the launch-wide text extent.  Keeping a
-// warp's peq in shared memory, or a warp per pair with shuffled carries,
-// is later work.
+// What bounds it on this card: integer issue.  Each (char, word) step is ~13
+// essential 32-bit logic/add/shift instructions for 32 DP cells; the H100
+// issues 132 SMs x 128 lanes of them per clock (ALU and FMA pipes).  The
+// per-word peq load (4 B per word per char, from L1/L2) is the second limit.
+// Design response: K is a template parameter so Pv/Mv live in registers (zero
+// pad words are inert, as taxtk's _quantize_K notes), and the thread stops at
+// its own n_len instead of running the launch-wide text extent.  Keeping a
+// warp's peq in shared memory, or a warp per pair with shuffled carries, is
+// later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -27,12 +27,12 @@
 // the strip's last row: per-pair state does not depend on shared memory,
 // so any bucket length works.
 //
-// What bounds it on this card: integer issue.  Each cell is 12 essential
-// INT32 ops (the table load, two adds, two maxes, three compares, two
-// selects of the stats, two stat increments); the H100
-// issues 132 SMs x 64 INT32 lanes per clock.  The per-step shuffles (3)
-// and the skew (31 idle lane-steps per strip of 32 rows) are the overhead
-// this design pays for its simplicity.
+// What bounds it on this card: integer issue.  Each cell is 12 essential INT32
+// ops (the table load, two adds, two maxes, three compares, two selects of the
+// stats, two stat increments); the H100 issues 132 SMs x 128 lanes of them per
+// clock (ALU and FMA pipes).  The per-step shuffles (3) and the skew (31 idle
+// lane-steps per strip of 32 rows) are the overhead this design pays for its
+// simplicity.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -138,8 +138,10 @@ def _pack_systolic(a_codes, b_codes, a_len, b_len, KC, build_pools=True,
     kernel's WIRE arrays: packed per-pair pattern/text code columns plus
     small per-slot metadata [n_rows, LANE] (one row per CUDA block; the
     TPU's sublane tiling and scalar-prefetched per-tile stop are gone —
-    each block finds its own last live step).
-    Returns (inputs dict, slot map, (n_rows, Np, nbmax))."""
+    each block finds its own last live step).  inputs["pair_slots"] is the
+    per-pair table [B, 2] int32 of (first flat slot row*LANE + lane, slot
+    count) that the CUDA kernel's block-per-pair launch reads.
+    Returns (inputs dict, (n_rows, Np, nbmax))."""
     B = len(a_len)
     swap = a_len > b_len
     m_len = np.where(swap, b_len, a_len).astype(np.int32)
@@ -207,9 +209,9 @@ def _pack_systolic(a_codes, b_codes, a_len, b_len, KC, build_pools=True,
     is_head = k_arr == 0
     head[r_arr[is_head], l_arr[is_head]] = 1
     txt_col[r_arr[is_head], l_arr[is_head]] = pair_arr[is_head]
-    last_slot = {
-        i: (slot_of[i][0], slot_of[i][1] + int(nb[i]) - 1) for i in range(B)
-    }
+    first = np.array([slot_of[i][0] * LANE + slot_of[i][1] for i in range(B)],
+                     np.int32)
+    pair_slots = np.stack([first, nb.astype(np.int32)], 1)
 
     # steps must cover every lane's window: n_len + STAG * (nb - 1); the
     # text extent rounds them up to whole trips (and whole packed bytes)
@@ -234,7 +236,7 @@ def _pack_systolic(a_codes, b_codes, a_len, b_len, KC, build_pools=True,
         pat_u=pat_u, text_u=text_u, plen_pat=plen_pat,
         peq_col=peq_col.reshape(-1), txt_col=txt_col.reshape(-1),
         head=head, lanek=lanek, nlen=nlen_l, mword=mword, mbit=mbit,
-        mlen=mlen_l,
+        mlen=mlen_l, pair_slots=pair_slots,
     )
-    return inputs, last_slot, (n_rows, Np, nbmax)
+    return inputs, (n_rows, Np, nbmax)
 

@@ -4,10 +4,12 @@ version.
 Mirrors taxtk/ops/pallas_myers_systolic.py::batched_edit_distance_systolic
 with its pool front end (_stage_and_call_pool): host._pack_systolic lays
 each pair's 32-word pattern blocks out as contiguous slots of 128-slot
-rows, the pool holds the sequence columns, peq is built on the device,
-and one kernel launch runs every block of every pair, a CUDA block per
-row.  The kernel reads peq and the head slots' text by column itself, so
-the TPU's staging gathers (_stage_core) have no counterpart here.
+rows (the plain version's layout and the per-slot output), the pool holds
+the sequence columns, and peq is built on the device.  The kernel runs one
+CUDA block per pair, through a per-pair table of (first slot, slot count),
+with a warp per KW pattern blocks and a lane per KW pattern words
+(`kernel_geometry`).  It reads peq and the text by column itself, so the
+TPU's staging gathers (_stage_core) have no counterpart here.
 
 `myers_systolic` is the wrapper: CUDA tensors launch the kernel (counted
 in `myers_systolic.launches`), CPU tensors run `myers_systolic_plain`.
@@ -32,13 +34,35 @@ DEFAULT_KC = 32  # pattern words per slot (1024 bp), as in taxtk
 # the kernel is built for DEFAULT_KC only; smaller slots (block_words) are
 # for the plain version, whose CPU tests use taxtk's small test geometry
 KC_SET = (DEFAULT_KC,)
+MAX_KW = 3  # pattern words per lane: 32 warps x 32 lanes x 3 = 96 blocks
+MAX_WARPS = 32
+# KW = 3 from here on, where it still gives a pair 16 warps or more: on
+# the H100 it was the faster at 49 blocks and KW = 2 at 25 and below
+# (chip_smoke.py's ms_by_kw)
+KW3_BLOCKS = 46
+GRAPH_STEPS = 64  # plain-version steps per CUDA graph on the card
 
 _META = ("peq_col", "txt_col", "head", "lanek", "nlen", "mword", "mbit",
          "mlen")
+_KERNEL_META = ("peq_col", "txt_col", "nlen", "mword", "mbit", "mlen")
+
+
+def kernel_geometry(nb_max: int):
+    """(KW, warps) of a launch whose largest pair has nb_max 32-word
+    blocks: two pattern words per lane (the kernel's source note says why
+    not one), three from KW3_BLOCKS on, and the warps that pair needs.
+    Raises ValueError past 96 blocks (98,304 bp, the aligner's
+    LONG_PATTERN_CAP)."""
+    nb_max = max(nb_max, 1)
+    kw = 2 if nb_max < KW3_BLOCKS else max(3, -(-nb_max // MAX_WARPS))
+    if kw > MAX_KW:
+        raise ValueError(f"myers_systolic: {nb_max} pattern blocks exceed "
+                         f"the kernel's {MAX_KW * MAX_WARPS}")
+    return kw, -(-nb_max // kw)
 
 
 def myers_systolic_plain(pool, peq, KC, peq_col, txt_col, head, lanek, nlen,
-                         mword, mbit, mlen, bits):
+                         mword, mbit, mlen, pair_slots, nb_max, bits):
     """Plain version of Kernel 2: the systolic recurrence written out as
     tensor code with one pattern word per lane and a stagger of one step.
 
@@ -49,7 +73,8 @@ def myers_systolic_plain(pool, peq, KC, peq_col, txt_col, head, lanek, nlen,
     and STAG = 1.  Fresh state at jeff1 == 1, the live window, the
     harvest at jeff1 == n_len and head insertion follow the kernel; each
     slot's result is that of its pattern-end word (word 0 where the slot
-    holds no end).  Returns [R, LANE] int32, the kernel's output."""
+    holds no end).  pair_slots and nb_max (the kernel's launch table) are
+    not read.  Returns [R, LANE] int32, the kernel's output."""
     dev = pool.device
     i64 = torch.int64
     R = head.shape[0]
@@ -82,33 +107,62 @@ def myers_systolic_plain(pool, peq, KC, peq_col, txt_col, head, lanek, nlen,
     mh_out = torch.zeros(L, dtype=i64, device=dev)
     score = m_w.clone()
     res = torch.maximum(m_w, n_w)
-    for t in range(steps):
+    t_now = torch.zeros(1, dtype=i64, device=dev)
+
+    def step():
+        """Step t_now of every word; the state tensors update in place."""
         tc = torch.roll(c_out, 1)
         cin_ph = torch.roll(ph_out, 1)
         cin_mh = torch.roll(mh_out, 1)
-        tc[heads] = fresh[t]
-        cin_ph[heads] = 1
-        cin_mh[heads] = 0
-        jeff1 = t + 1 - lag
+        tc.index_copy_(0, heads, fresh.index_select(0, t_now)[0])
+        cin_ph.index_fill_(0, heads, 1)
+        cin_mh.index_fill_(0, heads, 0)
+        jeff1 = t_now + 1 - lag
         enter = jeff1 == 1
-        pv = torch.where(enter, M32, pv)
-        mv = torch.where(enter, 0, mv)
+        pv0 = torch.where(enter, M32, pv)
+        mv0 = torch.where(enter, 0, mv)
         eq0 = peq_w.gather(0, tc.clamp(max=ALPHA)[None])[0]
         eq = eq0 | cin_mh
-        xv = eq | mv
-        add = ((eq & pv) + pv) & M32
-        xh = (add ^ pv) | eq
-        ph = (mv | ~(xh | pv)) & M32
-        mh = pv & xh
+        xv = eq | mv0
+        add = ((eq & pv0) + pv0) & M32
+        xh = (add ^ pv0) | eq
+        ph = (mv0 | ~(xh | pv0)) & M32
+        mh = pv0 & xh
         delta = (ph & hm).ne(0).to(i64) - (mh & hm).ne(0).to(i64)
         ph_shift = ((ph << 1) & M32) | cin_ph
         mh_shift = ((mh << 1) & M32) | cin_mh
-        pv = (mh_shift | ~(xv | ph_shift)) & M32
-        mv = ph_shift & xv
+        pv.copy_((mh_shift | ~(xv | ph_shift)) & M32)
+        mv.copy_(ph_shift & xv)
         live = (jeff1 >= 1) & (jeff1 <= n_w)
-        score = score + torch.where(live, delta, 0)
-        res = torch.where(jeff1 == n_w, score, res)
-        c_out, ph_out, mh_out = tc, ph >> 31, mh >> 31
+        score.add_(torch.where(live, delta, 0))
+        res.copy_(torch.where(jeff1 == n_w, score, res))
+        c_out.copy_(tc)
+        ph_out.copy_(ph >> 31)
+        mh_out.copy_(mh >> 31)
+        t_now.add_(1)
+
+    done = 0
+    if dev.type == "cuda" and steps > 2 + GRAPH_STEPS:
+        # some 60 small ops a step, so the loop is bound by the host's
+        # launches: on the card, GRAPH_STEPS steps are captured once as a
+        # CUDA graph and replayed (the same ops; the first two steps run
+        # eagerly on a side stream, as capture wants)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        done = 2
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(GRAPH_STEPS):
+                step()
+        while done + GRAPH_STEPS <= steps:
+            graph.replay()
+            done += GRAPH_STEPS
+    for _ in range(steps - done):
+        step()
     k_sel = torch.where((mw_slot >= 0) & (mw_slot < KC), mw_slot, 0)
     out = res.reshape(S, KC).gather(1, k_sel[:, None])[:, 0]
     return out.reshape(R, LANE).to(torch.int32)
@@ -119,29 +173,37 @@ def _lib():
     fn = lib.taxtk_myers_systolic
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, L, I, P, I] + [P] * 8 + [P, I, I, I, P]
+        fn.argtypes = [P, L, I, P, I] + [P] * 6 + [P, P, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
 
 def myers_systolic(pool, peq, KC, peq_col, txt_col, head, lanek, nlen, mword,
-                   mbit, mlen, bits):
+                   mbit, mlen, pair_slots, nb_max, bits):
     """Kernel 2 wrapper.  pool int8 [rows, cap]; peq int32
     [nbmax*KC, ALPHA, B1]; every slot array int32 [R, LANE] (txt_col holds
-    pool columns).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise.  Returns [R, LANE] int32."""
+    pool columns); pair_slots int32 [B, 2] (first slot, slot count) and
+    nb_max, the largest slot count (a host int: it sizes the launch).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Returns [R, LANE] int32."""
     meta = (peq_col, txt_col, head, lanek, nlen, mword, mbit, mlen)
     if pool.device.type == "cpu":
-        return myers_systolic_plain(pool, peq, KC, *meta, bits)
+        return myers_systolic_plain(pool, peq, KC, *meta, pair_slots, nb_max,
+                                    bits)
     if pool.device.type != "cuda":
         raise ValueError(f"myers_systolic: unsupported device {pool.device}")
     if KC not in KC_SET or bits not in (2, 4):
         raise ValueError(f"myers_systolic: KC={KC} bits={bits} not supported")
+    kw, warps = kernel_geometry(nb_max)
     R = head.shape[0]
     for name, t in zip(_META, meta):
         if (t.device != pool.device or t.dtype != torch.int32
                 or t.shape != (R, LANE) or not t.is_contiguous()):
             raise ValueError(f"myers_systolic: bad {name}")
+    if (pair_slots.device != pool.device or pair_slots.dtype != torch.int32
+            or pair_slots.dim() != 2 or pair_slots.shape[1] != 2
+            or not pair_slots.is_contiguous()):
+        raise ValueError("myers_systolic: bad pair_slots")
     if (pool.dtype != torch.int8 or pool.dim() != 2 or pool.stride(1) != 1
             or peq.device != pool.device or peq.dtype != torch.int32
             or peq.dim() != 3 or peq.shape[1] != ALPHA
@@ -149,10 +211,12 @@ def myers_systolic(pool, peq, KC, peq_col, txt_col, head, lanek, nlen, mword,
         raise ValueError("myers_systolic: bad pool or peq")
     out = torch.empty((R, LANE), dtype=torch.int32, device=pool.device)
     stream = torch.cuda.current_stream(pool.device).cuda_stream
+    kmeta = dict(zip(_META, meta))
     rc = _lib()(
         pool.data_ptr(), pool.stride(0), pool.shape[0], peq.data_ptr(),
-        peq.shape[2], *(t.data_ptr() for t in meta), out.data_ptr(), R, KC,
-        bits, stream,
+        peq.shape[2], *(kmeta[k].data_ptr() for k in _KERNEL_META),
+        pair_slots.data_ptr(), out.data_ptr(), R * LANE, pair_slots.shape[0],
+        kw, warps, bits, stream,
     )
     cuda_build.check(rc, "myers_systolic launch")
     myers_systolic.launches += 1
@@ -165,10 +229,10 @@ myers_systolic.launches = 0
 def systolic_inputs(a_codes, b_codes, a_len, b_len, device,
                     block_words=DEFAULT_KC,
                     pool_cache: DevicePoolCache | None = None):
-    """Host prep of the systolic entry (B >= 1): slot layout, pool append,
-    device peq.  Returns (args, post): `myers_systolic(*args)` computes
-    the [R, LANE] slot results and post(host) reads each pair's last slot
-    and pins empty sides."""
+    """Host prep of the systolic entry (B >= 1): slot layout, per-pair
+    table, pool append, device peq.  Returns (args, post):
+    `myers_systolic(*args)` computes the [R, LANE] slot results and
+    post(host) reads each pair's last slot and pins empty sides."""
     dev = torch.device(device)
     a_codes = np.asarray(a_codes, dtype=np.uint8)
     b_codes = np.asarray(b_codes, dtype=np.uint8)
@@ -181,7 +245,7 @@ def systolic_inputs(a_codes, b_codes, a_len, b_len, device,
     bits = 2 if (int(a_codes.max(initial=0)) < 4
                  and int(b_codes.max(initial=0)) < 4) else 4
     cpb = 8 // bits
-    inputs, last_slot, (R, Np, nbmax) = _pack_systolic(
+    inputs, (R, Np, nbmax) = _pack_systolic(
         a_codes, b_codes, a_len, b_len, KC, build_pools=pool_cache is None,
         bits=bits)
     B1 = _pow2(B + 1)
@@ -216,8 +280,8 @@ def systolic_inputs(a_codes, b_codes, a_len, b_len, device,
             slot_arrays[k].reshape(R, LANE), np.int32)).to(dev)
         for k in _META
     ]
-    last = np.array([last_slot[i][0] * LANE + last_slot[i][1]
-                     for i in range(B)])
+    pair_slots = inputs["pair_slots"]
+    last = pair_slots[:, 0] + pair_slots[:, 1] - 1
 
     def post(host):
         res = np.asarray(host).reshape(-1)[last]
@@ -226,7 +290,8 @@ def systolic_inputs(a_codes, b_codes, a_len, b_len, device,
         empty = (a_len == 0) | (b_len == 0)
         return np.where(empty, np.maximum(a_len, b_len), res).astype(np.int32)
 
-    return (text_pool, peq, KC, *meta, bits), post
+    return (text_pool, peq, KC, *meta, torch.from_numpy(pair_slots).to(dev),
+            int(pair_slots[:, 1].max()), bits), post
 
 
 def batched_edit_distance_systolic(

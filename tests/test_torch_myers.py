@@ -12,6 +12,8 @@ run their plain PyTorch versions:
 """
 
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -22,7 +24,10 @@ from taxtk.ops.myers_batch import batched_edit_distance_myers, build_peq
 from taxtk.ops.pallas_myers import batched_edit_distance_pallas_myers
 from taxtk.ops.pallas_myers_systolic import batched_edit_distance_systolic
 from taxtk.refpack.store import encode_dna
+from taxtk_torch.engine.aligner import LONG_PATTERN_CAP
+from taxtk_torch.native import myers_batch
 from taxtk_torch.ops import myers_cuda, myers_ref, myers_systolic
+from taxtk_torch.ops.host import LANE, STAG, _pack_systolic
 from taxtk_torch.ops.seqpool import DevicePoolCache
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
@@ -200,6 +205,165 @@ def test_systolic_entry_pool_and_edges(alphabet):
     got = myers_systolic.batched_edit_distance_systolic(
         ac, bc, al, bl, device="cpu")
     np.testing.assert_array_equal(got, _oracle(ac, bc, al, bl))
+
+
+def _related(rng, m, n, alphabet, mutate=0.05):
+    """(a, b): b random of length n, a a copy of b resized to m with a
+    share `mutate` of its codes redrawn, as RPA realigns related pairs."""
+    b = rng.integers(0, alphabet, n).astype(np.uint8)
+    a = np.resize(b, m)
+    mut = rng.random(m) < mutate
+    a[mut] = rng.integers(0, alphabet, int(mut.sum()))
+    return a, b
+
+
+def _pairs_batch(pairs):
+    B = len(pairs)
+    ac = np.zeros((B, max(1, max(len(a) for a, _ in pairs))), np.uint8)
+    bc = np.zeros((B, max(1, max(len(b) for _, b in pairs))), np.uint8)
+    for i, (a, b) in enumerate(pairs):
+        ac[i, : len(a)] = a
+        bc[i, : len(b)] = b
+    return (ac, bc, np.array([len(a) for a, _ in pairs], np.int32),
+            np.array([len(b) for _, b in pairs], np.int32))
+
+
+@pytest.mark.parametrize("alphabet", [4, 5])
+def test_systolic_entry_slot_edges_default_blocks(alphabet):
+    """The default 32-word (1024 bp) slots with patterns on the slot edges:
+    2049 bp (a third slot of one bp), 3072 (three full slots) and 3073 (a
+    fourth slot of one bp), related and unrelated, either side the
+    pattern, on the 2-bit and 4-bit wires, with and without the pool
+    cache.  The pattern is the shorter side, so each text is at most 40
+    chars longer than its pattern, which keeps the plain version's steps
+    near 3,100."""
+    rng = np.random.default_rng(40 + alphabet)
+    pairs = []
+    for m in (2049, 3072, 3073):
+        a, b = _related(rng, m, m + int(rng.integers(0, 41)), alphabet)
+        pairs += [(a, b), (b, a)]
+    pairs.append((rng.integers(0, alphabet, 3073).astype(np.uint8),
+                  rng.integers(0, alphabet, 3080).astype(np.uint8)))
+    ac, bc, al, bl = _pairs_batch(pairs)
+    want = _oracle(ac, bc, al, bl)
+    for cache in (None, DevicePoolCache("cpu")):
+        got = myers_systolic.batched_edit_distance_systolic(
+            ac, bc, al, bl, device="cpu", pool_cache=cache)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_systolic_pair_table_and_kernel_geometry():
+    """The per-pair table of the kernel's block-per-pair launch maps each
+    pair to its own contiguous slots, inside one 128-slot row, in the slot
+    order the plain version reads; the KW the wrapper picks covers every
+    pattern up to the aligner's LONG_PATTERN_CAP, and one block more is
+    refused."""
+    rng = np.random.default_rng(8)
+    ms = [0, 1, 1024, 1025, 2049, 3072, 3073, 40_000, 65_537, 98_304]
+    ms += [int(x) for x in rng.integers(2049, 20_000, 30)]
+    ns = [m + int(rng.integers(0, 100)) for m in ms]
+    ns[0] = 0
+    B = len(ms)
+    ac = np.zeros((B, max(ms)), np.uint8)
+    bc = np.zeros((B, max(ns)), np.uint8)
+    inputs, (R, _, _) = _pack_systolic(
+        ac, bc, np.array(ms, np.int32), np.array(ns, np.int32), 32,
+        build_pools=False)
+    table = inputs["pair_slots"]
+    assert table.shape == (B, 2) and table.dtype == np.int32
+    assert R > 1  # the pairs fill more than one row
+    head = inputs["head"].reshape(-1)
+    lanek = inputs["lanek"].reshape(-1)
+    nlen = inputs["nlen"].reshape(-1)
+    mlen = inputs["mlen"].reshape(-1)
+    mword = inputs["mword"].reshape(-1)
+    owner = np.full(R * LANE, -1)
+    for i, (first, nb) in enumerate(table):
+        assert nb == max(1, -(-ms[i] // 1024))
+        slots = np.arange(first, first + nb)
+        assert first // LANE == (first + nb - 1) // LANE  # one row
+        assert (owner[slots] == -1).all()
+        owner[slots] = i
+        assert head[first] == 1 and (head[slots[1:]] == 0).all()
+        np.testing.assert_array_equal(lanek[slots], STAG * np.arange(nb))
+        assert (nlen[slots] == ns[i]).all() and (mlen[slots] == ms[i]).all()
+        # the pattern end lies in the pair's last slot, at word (m-1) >> 5
+        assert (mword[slots[:-1]] == -1).all()
+        assert (nb - 1) * 32 + mword[slots[-1]] == (max(ms[i], 1) - 1) >> 5
+    free = owner == -1
+    assert (nlen[free] == 0).all() and (head[free] == 0).all()
+    assert (mword[free] == -1).all()
+
+    cap_blocks = -(-LONG_PATTERN_CAP // 1024)
+    for nb in range(1, cap_blocks + 1):
+        kw, warps = myers_systolic.kernel_geometry(nb)
+        assert kw in (2, 3) and 1 <= warps <= 32
+        assert kw * warps >= nb  # every pattern word has a lane
+        assert kw * (warps - 1) < nb  # and the pair's last warp has work
+        assert kw == (2 if nb < myers_systolic.KW3_BLOCKS else 3)
+    with pytest.raises(ValueError, match="pattern blocks"):
+        myers_systolic.kernel_geometry(cap_blocks + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [2, 3])
+def test_systolic_kernel_matches_plain_on_card(kw):
+    """Kernel 2 against its plain version, every output element (on the
+    pool-cache layout; the one-off layout against that output), and the
+    host C++ Myers after post: a ragged 4-bit batch of 2-6 kbp patterns
+    at KW = 2 and one 66 kbp pair beside a short one at KW = 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(50 + kw)
+    if kw == 2:
+        pairs = [_related(rng, int(m), int(m) + int(rng.integers(0, 500)), 5)
+                 for m in rng.integers(2049, 6000, 20)]
+    else:
+        pairs = [_related(rng, 65_600, 65_650, 4), _related(rng, 2100, 2200, 4)]
+    ac, bc, al, bl = _pairs_batch(pairs)
+    want = None
+    for cache in (DevicePoolCache("cuda"), None):
+        args, post = myers_systolic.systolic_inputs(
+            ac, bc, al, bl, torch.device("cuda"), pool_cache=cache)
+        assert myers_systolic.kernel_geometry(args[-2])[0] == kw
+        n = myers_systolic.myers_systolic.launches
+        got = myers_systolic.myers_systolic(*args)
+        assert myers_systolic.myers_systolic.launches == n + 1
+        if want is None:  # the plain version takes ~1 min at 66 kbp
+            want = myers_systolic.myers_systolic_plain(*args)
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(post(got.cpu().numpy()),
+                                      myers_batch(pairs))
+
+
+_UNDERSIZED_LAUNCH = """
+import numpy as np, torch
+from taxtk_torch.ops import myers_systolic as ms
+a = np.random.default_rng(0).integers(0, 4, (1, 5000)).astype(np.uint8)
+n = np.array([5000], np.int32)
+args, _ = ms.systolic_inputs(a, a.copy(), n, n, torch.device("cuda"))
+assert args[-2] == 5
+try:  # nb_max 1 sizes the launch at one warp (2 slots) for 5 slots
+    ms.myers_systolic(*args[:-2], 1, args[-1])
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("refused:", e)
+"""
+
+
+@pytest.mark.cuda
+def test_systolic_kernel_refuses_undersized_launch():
+    """A launch sized (nb_max) below one of its pairs' slot counts stops
+    with a CUDA error instead of computing a wrong distance or syncing
+    threads the block lacks; in a child process, since the error ends the
+    process's CUDA context."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _UNDERSIZED_LAUNCH],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert "refused:" in run.stdout, run.stdout + run.stderr
 
 
 def _golden_dna():
