@@ -16,7 +16,9 @@ Phases, one line each:
            and the kernel also at each KW its shape admits, forced; the
            chunked kernel against its plain version launch by launch,
            at two shapes); the DNA wavefront kernel against the host C++
-           Myers and its plain version at the aligner's bucket shapes;
+           Myers and its plain version at the aligner's former bucket
+           shapes, timed at each R (rows per lane) and, for the single
+           long pair, at each band width nw;
   engine   the taxator CLI (nucleotide RPA) on a 300-contig workload of
            1-20 kbp contigs, with the default myers-cuda backend, with
            --dna-backend native, with --dna-backend wavefront-cuda, and with
@@ -24,10 +26,12 @@ Phases, one line each:
            oversized-round route through the chunked kernel); every GFF3
            must be byte-identical to native's and each kernel of each path
            must have launched; the myers-cuda run times each systolic
-           launch with CUDA events and keeps its first 1024-pair launch;
-  kernels  the systolic kernel at that launch, the engine's own shape,
-           against its plain version and the host C++ Myers, timed at
-           both KW;
+           launch with CUDA events and keeps its first 1024-pair launch,
+           the wavefront-cuda run times each DNA wavefront launch and
+           keeps its largest;
+  kernels  the systolic kernel and the DNA wavefront kernel at those
+           launches, the engine's own shapes, against their plain versions
+           and the host C++ Myers, timed at each KW and each R;
   protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
            against their plain version, element for element, and their
            mutual scores against the host C++ NW, at main-path shapes on
@@ -79,10 +83,12 @@ OPS_PER_WORD_CHAR = 13
 # increments (IADD3).  The table load issues on the load/store unit and
 # is not counted.
 OPS_PER_CELL = 9
-# essential INT32 ops per min-plus DNA cell: the compare a != b, the add of
-# the diagonal and its cost, the min of up and left, and the DPX add-min
-# (VIADDMNMX) that adds 1 to that min and takes the min with the diagonal
-DNA_OPS_PER_CELL = 4
+# essential INT32 ops per min-plus DNA cell: the compare a == b, the DPX
+# three-way min of up, left and the diagonal (VIMNMX3), and the +1 on a
+# mismatch, an add predicated on the compare that writes over the
+# diagonal's register and so is also the select (on a match the cell is
+# the diagonal)
+DNA_OPS_PER_CELL = 3
 KERNEL_SOURCES = ["myers_short", "myers_systolic", "myers_chunked",
                   "dna_wavefront", "protein_wavefront", "protein_swar"]
 # H100 SXM: SMs x integer instructions per SM per clock.  Each of an SM's
@@ -93,9 +99,10 @@ KERNEL_SOURCES = ["myers_short", "myers_systolic", "myers_chunked",
 # sheet's 67 TFLOP/s float32 (an FMA being two flops)
 INT32_LANES = 132 * 128
 # template arguments of the kernels that have them (myers_short<K, BITS>,
-# myers_chunked<KB = 64, BITS>, myers_systolic<BITS, KW> at KC = 32)
+# myers_chunked<KB = 64, BITS>, myers_systolic<BITS, KW> at KC = 32,
+# dna_wavefront<R>)
 TEMPLATE_ARGS = {"myers_short": ("K", "bits"), "myers_chunked": ("K", "bits"),
-                 "myers_systolic": ("bits", "KW")}
+                 "myers_systolic": ("bits", "KW"), "dna_wavefront": ("R",)}
 
 
 def fail(msg: str) -> None:
@@ -469,32 +476,63 @@ def wavefront_bound(al, bl, int_rate):
     return bytes_ms, "bytes"
 
 
-def _check_wavefront(pairs, L, label, int_rate, reps, record):
-    """One bucket of the DNA wavefront kernel as the aligner forms it
-    (both sides padded to L): its distances against the host C++ Myers
-    and, element for element, the plain version's; CUDA-event median,
-    the plain version's time and the bound."""
+def _wavefront_forced_ms(args, want, reps, **force):
+    """Row 6 on `args` with one of kernel_geometry's choices forced (R=...
+    or nw=...): its output held against `want` (the plain version's) and
+    its CUDA-event median."""
+    import torch
+
+    from taxtk_torch.ops import dna_wavefront as dw
+
+    real = dw.kernel_geometry
+    with mock.patch.object(dw, "kernel_geometry",
+                           lambda *a, **k: real(*a, **{**k, **force})):
+        if not torch.equal(dw._launch(*args), want):
+            fail(f"dna_wavefront at {force} != plain version")
+        return cuda_ms(lambda: dw._launch(*args), reps)
+
+
+def _check_wavefront(batch, label, int_rate, reps, record, by_nw=False,
+                     first=False):
+    """One launch of the DNA wavefront kernel on a padded batch (ac, bc,
+    al, bl) as the aligner forms it: its distances against the host C++
+    Myers and, element for element, the plain version's; CUDA-event
+    median, the plain version's time, the bound, and the time at each R
+    (rows per lane) and, with by_nw, at each band width nw, each forced
+    and held against the plain version.  first: the main shape, put
+    first."""
+    import torch
+
     from taxtk_torch.native import myers_batch
+    from taxtk_torch.ops import dna_wavefront as dw
     from taxtk_torch.ops.dna_align import (edit_distance_wavefront,
                                            wavefront_inputs)
-    from taxtk_torch.ops.dna_wavefront import _launch, dna_wavefront
 
-    ac, bc, al, bl = _bucket(pairs, L)
+    ac, bc, al, bl = batch
+    pairs = [(ac[i, : al[i]], bc[i, : bl[i]]) for i in range(len(al))]
     args = wavefront_inputs(ac, bc, al, bl, "cuda")
-    got = dna_wavefront(*args)
+    got = dw.dna_wavefront(*args)
     if not np.array_equal(got.cpu().numpy(), myers_batch(pairs)):
         fail(f"dna_wavefront != host C++ Myers on {label}")
     plain, plain_ms = timed(lambda: edit_distance_wavefront(*args))
-    if not np.array_equal(got.cpu().numpy(), plain.cpu().numpy()):
+    if not torch.equal(got, plain):
         fail(f"dna_wavefront != plain version on {label}")
-    rec = dict(label=label, pairs=len(pairs), L=L,
+    R, nw = dw.kernel_geometry(len(al), ac.shape[1], bc.shape[1])[:2]
+    rec = dict(label=label, pairs=len(al), L=int(ac.shape[1]), R=R, nw=nw,
+               cells=int((al.astype(np.int64) * bl).sum()),
                max_abs_err=int((got - plain).abs().max()),
                # timed as the entry launches it: lengths checked on the
                # host, so no wait on the card before the launch
-               ms=cuda_ms(lambda: _launch(*args), reps),
-               plain_ms=plain_ms)
+               ms=cuda_ms(lambda: dw._launch(*args), reps),
+               plain_ms=plain_ms,
+               ms_by_R={f"R={r}": _wavefront_forced_ms(args, plain, reps, R=r)
+                        for r in dw.ROWS_PER_LANE})
+    if by_nw:
+        rec["ms_by_nw"] = {f"nw={w}": _wavefront_forced_ms(args, plain, reps,
+                                                           nw=w)
+                           for w in (1, 2, 4, 8, 16)}
     rec["bound_ms"], rec["bound_by"] = wavefront_bound(al, bl, int_rate)
-    record.append(rec)
+    record.insert(0 if first else len(record), rec)
     print(f"kernels: wavefront {label}: {json.dumps(rec)}", flush=True)
 
 
@@ -541,13 +579,14 @@ def phase_kernels(int_rate, long_shapes=((64, 25_000), (16, 50_000),
     for B, L in ((1, 32768), (4, 8192), (64, 2048), (4096, 256)):
         lo = 19_000 if L == 32768 else L // 2 + 1
         hi = 20_000 if L == 32768 else L
-        _check_wavefront(make_pairs(rng, B, (lo, hi), (lo, hi)), L,
-                         f"{B}x{L}", int_rate, 3, wave)
+        _check_wavefront(_bucket(make_pairs(rng, B, (lo, hi), (lo, hi)), L),
+                         f"{B}x{L}", int_rate, 3, wave, by_nw=B == 1)
     ragged = make_pairs(rng, 1500, (1, 512), (1, 512), 5)
     for i in range(0, 1500, 50):
         a, b = ragged[i]
         ragged[i] = (a[:1], b) if i % 100 else (a, b[:1])
-    _check_wavefront(ragged, 512, "ragged-4bit-N", int_rate, 3, wave)
+    _check_wavefront(_bucket(ragged, 512), "ragged-4bit-N", int_rate, 3,
+                     wave)
     return short, long_, chunked, wave
 
 
@@ -579,36 +618,31 @@ def run_cli(argv, aln_path):
     return out.getvalue(), secs, stats
 
 
-class SystolicCapture:
-    """Kernel 2 inside one engine run, seen from outside its wrapper (whose
-    count it leaves alone): CUDA events recorded on the stream around each
-    launch (the wrapper's `_lib()` call, patched), with no sync inside the
-    run, and a copy of the arguments of the first launch of `B` pairs (the
-    entry's `systolic_inputs`, patched)."""
+class LaunchCapture:
+    """One kernel inside one engine run, seen from outside its wrapper
+    (whose count it leaves alone): CUDA events recorded on the stream
+    around each launch (the module's `_lib()` call, patched), with no sync
+    inside the run, and what `keep(kept, host, out)` keeps of the entry's
+    inputs (`host`: the numpy a_codes, b_codes, a_len, b_len handed to the
+    module's `inputs` function, which is patched; `out`: what it
+    returned)."""
 
-    def __init__(self, B=1024):
-        self.B = B
+    def __init__(self, module, inputs, keep):
+        self.module, self.inputs, self.keep = module, inputs, keep
         self.events = []
-        self.first = None
+        self.kept = None
 
     @contextlib.contextmanager
     def active(self):
         import torch
 
-        from taxtk_torch.ops import myers_systolic
-
-        inputs, lib = myers_systolic.systolic_inputs, myers_systolic._lib
+        real, lib = getattr(self.module, self.inputs), self.module._lib
 
         def capture_inputs(a_codes, b_codes, a_len, b_len, *rest, **kw):
-            args, post = inputs(a_codes, b_codes, a_len, b_len, *rest, **kw)
-            if self.first is None and len(a_len) == self.B:
-                self.first = dict(
-                    args=tuple(x.clone() if torch.is_tensor(x) else x
-                               for x in args),
-                    post=post,
-                    pairs=[(a_codes[i, : a_len[i]], b_codes[i, : b_len[i]])
-                           for i in range(self.B)])
-            return args, post
+            out = real(a_codes, b_codes, a_len, b_len, *rest, **kw)
+            self.kept = self.keep(self.kept, (a_codes, b_codes, a_len, b_len),
+                                  out)
+            return out
 
         def timed_lib():
             fn = lib()
@@ -623,9 +657,8 @@ class SystolicCapture:
                 return rc
             return launch
 
-        with mock.patch.object(myers_systolic, "systolic_inputs",
-                               capture_inputs), \
-                mock.patch.object(myers_systolic, "_lib", timed_lib):
+        with mock.patch.object(self.module, self.inputs, capture_inputs), \
+                mock.patch.object(self.module, "_lib", timed_lib):
             yield self
 
     def kernel_ms(self):
@@ -636,14 +669,42 @@ class SystolicCapture:
         return [a.elapsed_time(b) for a, b in self.events]
 
 
+def keep_first_systolic(kept, host, out, B=1024):
+    """Kernel 2's capture: a copy of the arguments of the first launch of
+    B pairs (row 2's main shape)."""
+    import torch
+
+    a_codes, b_codes, a_len, b_len = host
+    if kept is not None or len(a_len) != B:
+        return kept
+    args, post = out
+    return dict(args=tuple(x.clone() if torch.is_tensor(x) else x
+                           for x in args),
+                post=post,
+                pairs=[(a_codes[i, : a_len[i]], b_codes[i, : b_len[i]])
+                       for i in range(B)])
+
+
+def keep_largest_wavefront(kept, host, out):
+    """Row 6's capture: the host inputs of the launch with the most DP
+    cells (row 6's main shape since its redesign)."""
+    a_len, b_len = host[2], host[3]
+    cells = int((np.asarray(a_len, np.int64) * b_len).sum())
+    if kept is not None and kept["cells"] >= cells:
+        return kept
+    return dict(cells=cells, host=host)
+
+
 def phase_engine(n_contigs=300):
     """The port's main paths on make_workload: nucleotide taxator with
     myers-cuda, with --dna-backend native, with wavefront-cuda, and with
     myers-cuda and the aligner's systolic_max_pairs = 0 (taxtk's
     oversized-round route, which has no CLI flag).  Each GFF3 must equal
     native's.  The myers-cuda run also times each Kernel 2 launch and keeps
-    the first 1024-pair launch's arguments (SystolicCapture).  Returns each
-    kernel's launch count from its path's run, and that capture."""
+    the first 1024-pair launch's arguments; the wavefront-cuda run times
+    each row-6 launch and keeps the inputs of its largest (LaunchCapture).
+    Returns each kernel's launch count from its path's run, and the two
+    captures."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload
 
@@ -691,20 +752,28 @@ def phase_engine(n_contigs=300):
         gen_s = time.time() - t
         os.environ["TAXATORTK_TAXONOMY_NCBI"] = tax_dir
         argv = ["-g", mapping, "-q", qfa, "-f", rfa, "-i", rfa + ".fai"]
-        capture = SystolicCapture()
+        capture = LaunchCapture(myers_systolic, "systolic_inputs",
+                                keep_first_systolic)
         with capture.active():
             runs["myers-cuda"] = counted(lambda: run_cli(argv, aln),
                                          ("myers_short", "myers_systolic"))
         k2_ms = capture.kernel_ms()
-        if capture.first is None or len(k2_ms) != launches["myers_systolic"]:
+        if capture.kept is None or len(k2_ms) != launches["myers_systolic"]:
             fail("the myers-cuda run made no 1024-pair Kernel 2 launch, or "
                  "its launches were not all timed")
         runs["native"] = counted(
             lambda: run_cli(argv + ["--dna-backend", "native"], aln), ())
         runs["oversized"] = counted(run_oversized, ("myers_chunked",))
-        runs["wavefront-cuda"] = counted(
-            lambda: run_cli(argv + ["--dna-backend", "wavefront-cuda"], aln),
-            ("dna_wavefront",))
+        wave_cap = LaunchCapture(dna_wavefront, "wavefront_inputs",
+                                 keep_largest_wavefront)
+        with wave_cap.active():
+            runs["wavefront-cuda"] = counted(
+                lambda: run_cli(argv + ["--dna-backend", "wavefront-cuda"],
+                                aln),
+                ("dna_wavefront",))
+        w_ms = wave_cap.kernel_ms()
+        if wave_cap.kept is None or len(w_ms) != launches["dna_wavefront"]:
+            fail("the wavefront-cuda run's row-6 launches were not all timed")
     gff_native = runs["native"][0][0]
     n_lines = gff_native.count("\n")
     if not gff_native.startswith("##gff-version 3\n") or n_lines < n_contigs:
@@ -719,8 +788,10 @@ def phase_engine(n_contigs=300):
                           launches=counts, stats=stats)
     rec["myers-cuda"]["myers_systolic_ms"] = k2_ms
     rec["myers-cuda"]["myers_systolic_ms_sum"] = sum(k2_ms)
+    rec["wavefront-cuda"]["dna_wavefront_ms"] = w_ms
+    rec["wavefront-cuda"]["dna_wavefront_ms_sum"] = sum(w_ms)
     print(f"engine: {json.dumps(rec)}", flush=True)
-    return launches, capture.first
+    return launches, capture.kept, wave_cap.kept
 
 
 def protein_bound(al, bl, int_rate):
@@ -1018,8 +1089,13 @@ def main() -> int:
     int_rate = INT32_LANES * clock_mhz * 1e6
     phase_build()
     short, long_, chunked, wave = phase_kernels(int_rate)
-    launches, engine_launch = phase_engine()
-    _check_systolic_engine(engine_launch, int_rate, 5, long_)
+    launches, systolic_launch, wave_launch = phase_engine()
+    _check_systolic_engine(systolic_launch, int_rate, 5, long_)
+    # row 6 at the engine's own shape, its main shape: the inputs of the
+    # wavefront-cuda run's largest launch
+    B, L = wave_launch["host"][0].shape
+    _check_wavefront(wave_launch["host"], f"engine {B}x{L}", int_rate, 5,
+                     wave, first=True)
     prot = phase_protein(int_rate)
     phase_golden()
     launches.update(phase_protein_engine())

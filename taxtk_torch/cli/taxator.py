@@ -7,8 +7,10 @@ are myers-cuda (the hand-written Myers kernels; the default), myers (their
 plain PyTorch versions), native (host C++), wavefront-cuda (the min-plus
 wavefront kernel) and wavefront (its plain version); protein mode (-b protein)
 has wavefront-cuda (the BLOSUM62 wavefront kernels; the default) and
-wavefront (the plain recurrence).  --device picks the card (cuda, the
-default) or the CPU.  --mesh is not ported yet and stops with an error.
+wavefront (the plain recurrence).  taxtk's names myers-pallas and
+wavefront-pallas are taken for myers-cuda and wavefront-cuda.  --device
+picks the card (cuda, the default) or the CPU.  --mesh is not ported yet
+and stops with an error.
 
 
 Flags, defaults and the stdin->stdout text contract follow the reference
@@ -82,14 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run")
     p.add_argument("--dna-backend",
                    choices=["myers-cuda", "myers", "native", "wavefront-cuda",
-                            "wavefront"],
+                            "wavefront", "myers-pallas"],
                    help="alignment kernel backend (default: myers-cuda on "
                         "cuda, myers on cpu); wavefront-cuda and wavefront "
-                        "are the min-plus DP kernel and its plain version")
+                        "are the min-plus DP kernel and its plain version; "
+                        "myers-pallas, taxtk's name, is myers-cuda")
     p.add_argument("--protein-backend",
-                   choices=["wavefront-cuda", "wavefront"],
+                   choices=["wavefront-cuda", "wavefront", "wavefront-pallas"],
                    help="protein kernel backend (default: wavefront-cuda on "
-                        "cuda, wavefront on cpu)")
+                        "cuda, wavefront on cpu); wavefront-pallas, taxtk's "
+                        "name, is wavefront-cuda")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device for the alignment kernels (default: cuda)")
     p.add_argument("--stats", action="store_true",

@@ -21,7 +21,8 @@ DNA backends: "myers-cuda" (the kernels; the default on the card),
 wavefront kernel of ops/dna_wavefront.py) and "wavefront" (its plain
 version, ops/dna_align.py).  The two wavefront backends have no long
 route: every pair goes to a square pow2 bucket of its longer side, as in
-protein mode.
+protein mode; wavefront-cuda sends each bucket class of a call to the
+kernel in one launch (_run_wavefront_class).
 
 In protein mode every pair with two non-empty sides goes to one square
 pow2 bucket of its longer side, each capped at max_batch_cells // L^2
@@ -59,6 +60,9 @@ DNA_BACKENDS = ("myers-cuda", "myers", "native", "wavefront-cuda",
                 "wavefront")
 MYERS_BACKENDS = ("myers-cuda", "myers")
 PROTEIN_BACKENDS = ("wavefront-cuda", "wavefront")
+# taxtk's names of its kernel routes, taken as names of the port's
+BACKEND_ALIASES = {"myers-pallas": "myers-cuda",
+                   "wavefront-pallas": "wavefront-cuda"}
 # device caps of the long route (taxtk/ops/pallas_myers.py): patterns up
 # to 96 kbp (96 systolic blocks, inside one 128-slot row) and texts up to
 # 256 kbp stay on the device; beyond -> host C++
@@ -108,7 +112,9 @@ class BatchAligner:
     dna_backend: "myers-cuda" | "myers" | "native" | "wavefront-cuda" |
     "wavefront" (default: myers-cuda on a CUDA device, myers on the CPU).
     protein_backend: "wavefront-cuda" | "wavefront" (default:
-    wavefront-cuda on a CUDA device, wavefront on the CPU).  device:
+    wavefront-cuda on a CUDA device, wavefront on the CPU).  taxtk's
+    "myers-pallas" and "wavefront-pallas" name the kernel routes,
+    "myers-cuda" and "wavefront-cuda".  device:
     "cuda" (default) or "cpu".
     """
 
@@ -129,8 +135,10 @@ class BatchAligner:
         self.mode = mode
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
-        self.dna_backend = dna_backend or ("myers-cuda" if on_card else "myers")
-        self.protein_backend = protein_backend or (
+        self.dna_backend = BACKEND_ALIASES.get(dna_backend, dna_backend) or (
+            "myers-cuda" if on_card else "myers")
+        self.protein_backend = BACKEND_ALIASES.get(
+            protein_backend, protein_backend) or (
             "wavefront-cuda" if on_card else "wavefront")
         for kind, name, known in (("dna", self.dna_backend, DNA_BACKENDS),
                                   ("protein", self.protein_backend,
@@ -283,6 +291,10 @@ class BatchAligner:
                 buckets.setdefault(_pow2ceil(max(len(a), len(b))), []).append(k)
             for L, idxs in buckets.items():
                 max_pairs = max(1, self.max_batch_cells // (L * L))
+                if self.mode == "dna" and self.dna_backend == "wavefront-cuda":
+                    self._run_wavefront_class(pairs, idxs, L, max_pairs,
+                                              results, finishers)
+                    continue
                 for off in range(0, len(idxs), max_pairs):
                     self._run_bucket(pairs, idxs[off : off + max_pairs], L, L,
                                      results, finishers)
@@ -350,10 +362,27 @@ class BatchAligner:
             finishers.append(_DevPending(dev, post, fill_long))
             self._tick("device", t0)
 
-    def _run_bucket(self, pairs, idxs, M, N, results, finishers):
+    def _run_wavefront_class(self, pairs, idxs, L, sub_pairs, results,
+                             finishers):
+        """One pow2 class of the wavefront-cuda backend: its pairs go to the
+        min-plus kernel in one launch, without dummy rows, up to the
+        kernel's own device memory (B x (L + 1) scratch cells <=
+        max_batch_cells; its footprint is O(B * L), so taxtk's L^2 cap has
+        no reason here).  cells_computed counts as taxtk's sub-buckets of
+        sub_pairs pairs do, their dummy 1 x 1 rows included."""
+        for off in range(0, len(idxs), sub_pairs):
+            B = min(sub_pairs, len(idxs) - off)
+            self.cells_computed += _pow2ceil(B, minimum=8) - B
+        launch_pairs = max(1, self.max_batch_cells // (L + 1))
+        for off in range(0, len(idxs), launch_pairs):
+            self._run_bucket(pairs, idxs[off : off + launch_pairs], L, L,
+                             results, finishers, dummy_rows=False)
+
+    def _run_bucket(self, pairs, idxs, M, N, results, finishers,
+                    dummy_rows=True):
         t0 = _time.time()
         B = len(idxs)
-        Bpad = _pow2ceil(B, minimum=8)
+        Bpad = _pow2ceil(B, minimum=8) if dummy_rows else B
         a_codes = np.zeros((Bpad, M), dtype=np.uint8)
         b_codes = np.zeros((Bpad, N), dtype=np.uint8)
         a_len = np.zeros(Bpad, dtype=np.int32)

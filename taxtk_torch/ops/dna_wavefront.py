@@ -10,6 +10,8 @@ tile) is not built.  No pool: taxtk never gave this backend one.
 `dna_wavefront` is the wrapper: on CUDA tensors it launches the kernel and
 counts the launch in `dna_wavefront.launches`; on CPU tensors it runs the
 plain version, ops/dna_align.py::edit_distance_wavefront.
+`kernel_geometry` sets out the launch (rows per lane, warps per band and
+band tickets) from the batch's shape.
 """
 
 from __future__ import annotations
@@ -24,9 +26,18 @@ from . import cuda_build
 from .dna_align import edit_distance_wavefront, wavefront_inputs
 
 MAX_LEN = 1 << 23  # the kernel packs D values below 2^24 beside a code
-# the kernel's geometry (csrc/dna_wavefront.cu: H and WARPS)
-STRIP_ROWS = 128
-WARPS = 4
+# the kernel's geometry (csrc/dna_wavefront.cu): rows per lane (a template
+# argument), warps per band
+ROWS_PER_LANE = (4, 8, 16)
+# 8 rows a lane for a launch of at least FILL_STRIPS strips of 256 rows
+# (warps enough to keep the card's issue busy, where fewer instructions a
+# cell win), 4 below (half the serial chain a step, where latency wins);
+# chip_smoke.py times both at the engine's largest launch and at one to
+# 4,096 pairs
+FILL_STRIPS = 1024
+MAX_WARPS = 16
+# warps per band (chip_smoke.py times 1 to 16 on one long pair, ms_by_nw)
+BAND_WARPS = 4
 
 
 def _lib():
@@ -34,9 +45,33 @@ def _lib():
     fn = lib.taxtk_dna_wavefront
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, L, P, L, P, P, P, P, L, P, P, P, I, I, P]
+        fn.argtypes = [P, L, P, L, P, P, P, L, P, P, P, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_geometry(B, M, N, R=None, nw=None):
+    """(R, nw, tickets) of a launch on a [B, M] x [B, N] batch, from its
+    shape alone.  R and nw may be forced (chip_smoke.py times each).
+
+    Each pair runs with its longer side as the rows, cut into strips of
+    32 * R rows: R = 8 from FILL_STRIPS strips of 256 rows on (B times the
+    strips of the widest pair the widths allow), else 4.  A band is nw
+    consecutive strips, one block of nw warps: BAND_WARPS, or the most
+    strips a pair can have if fewer.  Tickets are band-major: ticket t is
+    band t // B of pair t % B, and tickets = B times the most bands a pair
+    can have (max(M, N) rows)."""
+    side = max(M, N, 1)
+    if R is None:
+        R = 8 if B * -(-side // 256) >= FILL_STRIPS else 4
+    if R not in ROWS_PER_LANE:
+        raise ValueError(f"dna_wavefront: R={R} not in {ROWS_PER_LANE}")
+    strips_max = -(-side // (32 * R))
+    if nw is None:
+        nw = min(BAND_WARPS, strips_max)
+    elif not 1 <= nw <= MAX_WARPS:
+        raise ValueError(f"dna_wavefront: nw={nw} outside [1, {MAX_WARPS}]")
+    return R, nw, B * -(-strips_max // nw)
 
 
 def _check_lengths(a_len, b_len, M, N):
@@ -77,22 +112,18 @@ def _launch(a, b, a_len, b_len):
     if max(M, N) >= MAX_LEN:
         raise ValueError(f"dna_wavefront: sides of {max(M, N)} codes exceed "
                          f"{MAX_LEN - 1}")
-    H = STRIP_ROWS
     dev = a.device
-    strips = torch.where((a_len > 0) & (b_len > 0), (a_len + H - 1) // H, 0)
-    base = torch.zeros(B + 1, dtype=torch.int32, device=dev)
-    base[1:] = torch.cumsum(strips, 0)
-    upper = B * -(-M // H)  # no pair has more strips than its padded side
-    counters = torch.zeros(upper + 1, dtype=torch.int32, device=dev)
-    rows = torch.empty((B, N + 1), dtype=torch.int32, device=dev)
+    R, nw, tickets = kernel_geometry(B, M, N)
+    counters = torch.zeros(tickets + 1, dtype=torch.int32, device=dev)
+    width = max(1, min(M, N))  # no pair has more columns (its shorter side)
+    rows = torch.empty((B, width), dtype=torch.int32, device=dev)
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_blocks = max(1, min(-(-upper // WARPS), 16 * sms))
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # counters: the ticket, then one progress count per ticket
     rc = _lib()(
         a.data_ptr(), M, b.data_ptr(), N, a_len.data_ptr(), b_len.data_ptr(),
-        base.data_ptr(), rows.data_ptr(), N + 1, counters[1:].data_ptr(),
-        counters.data_ptr(), out.data_ptr(), B, n_blocks, stream,
+        rows.data_ptr(), width, counters.data_ptr() + 4, counters.data_ptr(),
+        out.data_ptr(), B, tickets, R, nw, stream,
     )
     cuda_build.check(rc, "dna_wavefront launch")
     dna_wavefront.launches += 1

@@ -101,7 +101,8 @@ def test_engine_gff3_and_log_match_taxtk(tmp_path, monkeypatch):
     assert got[0].count("\n") > 3 and got[1]
 
 
-@pytest.mark.parametrize("backend", ["myers", "native", "wavefront"])
+@pytest.mark.parametrize("backend", ["myers", "native", "wavefront",
+                                     "myers-pallas"])
 def test_cli_stdout_matches_taxtk(refpack, monkeypatch, capsys, backend):  # noqa: F811
     monkeypatch.setenv("TAXATORTK_TAXONOMY_NCBI", str(refpack["dir"]))
     argv = [
@@ -140,6 +141,27 @@ def test_default_device_is_cuda():
         with pytest.raises(TaxtkError, match="device='cpu'"):
             torch_aligner_mod.BatchAligner("dna")
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("mode,taxtk_name,route", [
+    ("dna", "myers-pallas", "myers-cuda"),
+    ("protein", "wavefront-pallas", "wavefront-cuda")])
+def test_aligner_takes_taxtk_backend_names(mode, taxtk_name, route):
+    """taxtk's names of its kernel routes give the port's kernel route,
+    pool cache included; on the CPU it runs the plain versions."""
+    from taxtk.ops import oracle
+
+    kw = {f"{mode}_backend": taxtk_name}
+    al = torch_aligner_mod.BatchAligner(mode, device="cpu", **kw)
+    assert getattr(al, f"{mode}_backend") == route
+    assert al.pool_cache is not None
+    if mode == "dna":
+        rng = np.random.default_rng(5)
+        pairs = [(rng.integers(0, 4, m).astype(np.uint8),
+                  rng.integers(0, 4, n).astype(np.uint8))
+                 for m, n in [(30, 35), (0, 4), (64, 60)]]
+        assert [int(v.distance) for v in al.align_pairs(pairs)] == [
+            oracle.edit_distance(a, b) for a, b in pairs]
 
 
 def test_empty_and_host_long_routes_match_oracle():

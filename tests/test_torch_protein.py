@@ -292,11 +292,15 @@ def _chain(taxator, binner, pr, extra, monkeypatch, capsys):
     return gff, capsys.readouterr().out
 
 
-@pytest.mark.parametrize("backend", ["wavefront-cuda", "wavefront"])
+@pytest.mark.parametrize("backend", ["wavefront-cuda", "wavefront",
+                                     "wavefront-pallas"])
 def test_protein_cli_chain_matches_taxtk(protein_refpack, monkeypatch,  # noqa: F811
                                          capsys, backend):
+    """taxtk gets the same --protein-backend where it has the name."""
     monkeypatch.setenv("TAXATORTK_TAXONOMY_NCBI", str(protein_refpack["dir"]))
-    want = _chain(jax_taxator, jax_binner, protein_refpack, [], monkeypatch,
+    flag = [] if backend == "wavefront-cuda" else ["--protein-backend",
+                                                   backend]
+    want = _chain(jax_taxator, jax_binner, protein_refpack, flag, monkeypatch,
                   capsys)
     reset_shared_pools()
     got = _chain(torch_taxator, torch_binner, protein_refpack,
