@@ -25,25 +25,29 @@ Phases, one line each:
            myers-cuda and the aligner's systolic_max_pairs = 0 (the
            oversized-round route through the chunked kernel); every GFF3
            must be byte-identical to native's and each kernel of each path
-           must have launched; the myers-cuda run times each systolic
-           launch with CUDA events and keeps its first 1024-pair launch,
-           the wavefront-cuda run times each DNA wavefront launch and
-           keeps its largest;
+           must have launched; the myers-cuda run times each short and
+           each systolic launch with CUDA events and keeps its first
+           1024-pair systolic launch, the wavefront-cuda run times each
+           DNA wavefront launch and keeps its largest;
   kernels  the systolic kernel and the DNA wavefront kernel at those
            launches, the engine's own shapes, against their plain versions
            and the host C++ Myers, timed at each KW and each R;
   protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
            against their plain version, element for element, and their
            mutual scores against the host C++ NW, at main-path shapes on
-           both pool layouts, with CUDA-event times;
+           both pool layouts, with CUDA-event times (v5 also at each band
+           width nw at 1024 x 512 and 64 x 2048);
   golden   every protein pair of both SeqAn golden corpora through both
            protein kernels (v6 where its 16-bit domain holds);
   protein engine
            taxator -b protein -l on the 2000-ORF protein workload with
            wavefront-cuda, with --protein-backend wavefront (the plain
            version) and with TAXTK_PROTEIN_SWAR=1: GFF3s and logs
-           byte-identical, both protein kernels launched; then the GFF3
-           through the port's binner.
+           byte-identical, both protein kernels launched; the
+           wavefront-cuda run times each v5 launch with CUDA events and
+           keeps its largest; then the GFF3 through the port's binner;
+  protein  v5 at that launch, the engine's own shape, against its plain
+           version and the host C++ NW, timed at each nw.
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -686,8 +690,8 @@ def keep_first_systolic(kept, host, out, B=1024):
 
 
 def keep_largest_wavefront(kept, host, out):
-    """Row 6's capture: the host inputs of the launch with the most DP
-    cells (row 6's main shape since its redesign)."""
+    """Row 6's and row 4's capture: the host inputs of the launch with the
+    most DP cells (each row's main shape since its redesign)."""
     a_len, b_len = host[2], host[3]
     cells = int((np.asarray(a_len, np.int64) * b_len).sum())
     if kept is not None and kept["cells"] >= cells:
@@ -700,9 +704,10 @@ def phase_engine(n_contigs=300):
     myers-cuda, with --dna-backend native, with wavefront-cuda, and with
     myers-cuda and the aligner's systolic_max_pairs = 0 (taxtk's
     oversized-round route, which has no CLI flag).  Each GFF3 must equal
-    native's.  The myers-cuda run also times each Kernel 2 launch and keeps
-    the first 1024-pair launch's arguments; the wavefront-cuda run times
-    each row-6 launch and keeps the inputs of its largest (LaunchCapture).
+    native's.  The myers-cuda run also times each Kernel 1 and Kernel 2
+    launch and keeps the first 1024-pair Kernel 2 launch's arguments; the
+    wavefront-cuda run times each row-6 launch and keeps the inputs of its
+    largest (LaunchCapture).
     Returns each kernel's launch count from its path's run, and the two
     captures."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
@@ -754,13 +759,18 @@ def phase_engine(n_contigs=300):
         argv = ["-g", mapping, "-q", qfa, "-f", rfa, "-i", rfa + ".fai"]
         capture = LaunchCapture(myers_systolic, "systolic_inputs",
                                 keep_first_systolic)
-        with capture.active():
+        short_cap = LaunchCapture(myers_cuda, "short_inputs",
+                                  lambda kept, host, out: None)
+        with capture.active(), short_cap.active():
             runs["myers-cuda"] = counted(lambda: run_cli(argv, aln),
                                          ("myers_short", "myers_systolic"))
         k2_ms = capture.kernel_ms()
         if capture.kept is None or len(k2_ms) != launches["myers_systolic"]:
             fail("the myers-cuda run made no 1024-pair Kernel 2 launch, or "
                  "its launches were not all timed")
+        k1_ms = short_cap.kernel_ms()
+        if len(k1_ms) != launches["myers_short"]:
+            fail("the myers-cuda run's Kernel 1 launches were not all timed")
         runs["native"] = counted(
             lambda: run_cli(argv + ["--dna-backend", "native"], aln), ())
         runs["oversized"] = counted(run_oversized, ("myers_chunked",))
@@ -787,6 +797,7 @@ def phase_engine(n_contigs=300):
         rec[label] = dict(engine_s=secs, mbp_per_h=mbp_h(total_qbp, secs),
                           launches=counts, stats=stats)
     rec["myers-cuda"]["myers_systolic_ms"] = k2_ms
+    rec["myers-cuda"]["myers_short_ms_sum"] = sum(k1_ms)
     rec["myers-cuda"]["myers_systolic_ms_sum"] = sum(k2_ms)
     rec["wavefront-cuda"]["dna_wavefront_ms"] = w_ms
     rec["wavefront-cuda"]["dna_wavefront_ms_sum"] = sum(w_ms)
@@ -850,28 +861,48 @@ def _bucket(pairs, L):
     return pad(ac), pad(bc), al, bl
 
 
-def _check_protein(pairs, L, label, int_rate, reps, records):
-    """One main-path shape of both protein kernels, on both layouts of the
-    entry: the one-off pool and a fresh DevicePoolCache (the main path's).
-    On each, every output element of v5 and (inside its domain) v6 is held
-    against the plain version on the same tensors, and the mutual scores
-    against the host C++ NW.  Then, on the cache layout, each kernel's
-    CUDA-event median over `reps` launches, the plain version's time and
-    the bound."""
+def _protein_nw_ms(args, want, reps, nw):
+    """Row 4 on `args` with kernel_geometry's nw forced: its output held
+    against `want` (the plain version's) and its CUDA-event median."""
+    import torch
+
+    from taxtk_torch.ops import protein_cuda as pc
+
+    real = pc.kernel_geometry
+    with mock.patch.object(pc, "kernel_geometry",
+                           lambda B, M, N, nw_=None: real(B, M, N, nw)):
+        if not torch.equal(pc.protein_wavefront(*args), want):
+            fail(f"protein_wavefront at nw={nw} != plain version")
+        return cuda_ms(lambda: pc.protein_wavefront(*args), reps)
+
+
+def _check_protein(batch, label, int_rate, reps, records, swar=True,
+                   layouts=("one-off pool", "pool cache"), first=False,
+                   by_nw=False):
+    """One main-path launch (ac, bc, al, bl, padded to the bucket) of both
+    protein kernels (v6 with swar, inside its domain), on the entry's
+    layouts: the one-off pool and a fresh DevicePoolCache (the main
+    path's, timed).  On each, every output element is held against the
+    plain version on the same tensors, and the mutual scores against the
+    host C++ NW.  Then, on the cache layout, each kernel's CUDA-event
+    median over `reps` launches, the plain version's time and the bound;
+    with by_nw, row 4 also at each band width nw, forced.  first: the main
+    shape, put first."""
     import torch
 
     from taxtk_torch.native import protein_nw_batch
     from taxtk_torch.ops import protein_cuda as pc
     from taxtk_torch.ops.seqpool import DevicePoolCache
 
-    ac, bc, al, bl = _bucket(pairs, L)
+    ac, bc, al, bl = batch
+    M, N = ac.shape[1], bc.shape[1]
+    pairs = [(ac[i, : al[i]], bc[i, : bl[i]]) for i in range(len(al))]
     want = protein_nw_batch(pairs, n_threads=0)
-    fits = pc._swar_fits(*pc._shapes(L, L)[:2])
     kernels = [("protein_wavefront", pc.protein_wavefront)]
-    if fits:
+    if swar and pc._swar_fits(*pc._shapes(M, N)[:2]):
         kernels.append(("protein_swar", pc.protein_swar))
     err = 0
-    for layout in ("one-off pool", "pool cache"):
+    for layout in layouts:
         cache = DevicePoolCache("cuda") if layout == "pool cache" else None
         args = pc.protein_inputs(ac, bc, al, bl, torch.device("cuda"), cache)
         plain, plain_ms = timed(lambda: pc.protein_plain(*args))
@@ -886,10 +917,18 @@ def _check_protein(pairs, L, label, int_rate, reps, records):
             err = max(err, int((got - plain).abs().max()))
     bnd, by = protein_bound(al, bl, int_rate)
     for name, fn in kernels:
-        rec = dict(label=label, pairs=len(pairs), max_abs_err=err,
-                   ms=cuda_ms(lambda: fn(*args), reps), plain_ms=plain_ms,
-                   bound_ms=bnd, bound_by=by)
-        records.setdefault(name, []).append(rec)
+        rec = dict(label=label, pairs=len(al), L=int(M),
+                   cells=int((al.astype(np.int64) * bl).sum()),
+                   max_abs_err=err, ms=cuda_ms(lambda: fn(*args), reps),
+                   plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
+        if name == "protein_wavefront":
+            rec["nw"] = pc.kernel_geometry(len(al), M, N)[0]
+            if by_nw:
+                rec["ms_by_nw"] = {f"nw={w}": _protein_nw_ms(args, plain,
+                                                              reps, w)
+                                   for w in (4, 8, 16)}
+        recs = records.setdefault(name, [])
+        recs.insert(0 if first else len(recs), rec)
         print(f"protein: {name} {label}: {json.dumps(rec)}", flush=True)
 
 
@@ -900,21 +939,22 @@ def phase_protein(int_rate):
     records = {}
     # the aligner caps a bucket at max_batch_cells // L^2 pairs: 1024 at
     # L = 512, 4096 at L = 256, 64 at L = 2048 (outside v6's domain)
-    _check_protein(make_protein_pairs(rng, 1024, (257, 512)), 512,
-                   "1024x512", int_rate, 5, records)
-    _check_protein(make_protein_pairs(rng, 4096, (129, 256)), 256,
+    _check_protein(_bucket(make_protein_pairs(rng, 1024, (257, 512)), 512),
+                   "1024x512", int_rate, 5, records, by_nw=True)
+    _check_protein(_bucket(make_protein_pairs(rng, 4096, (129, 256)), 256),
                    "4096x256", int_rate, 5, records)
     # bench.py's canonical launch: 512 unrelated pairs of exactly 256 aa
     r7 = np.random.RandomState(7)
     std = standard_residues()
     a = std[r7.randint(0, 20, (512, 256))]
     b = std[r7.randint(0, 20, (512, 256))]
-    _check_protein(list(zip(a, b)), 256, "512x256x256", int_rate, 5, records)
-    _check_protein(make_protein_pairs(rng, 64, (1025, 2048)), 2048,
-                   "64x2048", int_rate, 3, records)
-    _check_protein(make_protein_pairs(rng, 1500, (60, 400), empty=0.03,
-                                      xstar=0.02), 512, "ragged-60-400",
-                   int_rate, 3, records)
+    _check_protein(_bucket(list(zip(a, b)), 256), "512x256x256", int_rate, 5,
+                   records)
+    _check_protein(_bucket(make_protein_pairs(rng, 64, (1025, 2048)), 2048),
+                   "64x2048", int_rate, 3, records, by_nw=True)
+    _check_protein(_bucket(make_protein_pairs(rng, 1500, (60, 400),
+                                              empty=0.03, xstar=0.02), 512),
+                   "ragged-60-400", int_rate, 3, records)
     return records
 
 
@@ -986,8 +1026,10 @@ def phase_protein_engine(n_orfs=2000):
     """The protein main path: taxator -b protein -l on bench.py's protein
     workload with wavefront-cuda, the plain wavefront backend and
     TAXTK_PROTEIN_SWAR=1; GFF3s and logs byte-identical; then the binner.
-    Returns the protein kernels' launch counts (v5 from the first run,
-    v6 from the third)."""
+    The first run times each row-4 launch with CUDA events and keeps the
+    inputs of its largest (LaunchCapture).  Returns the protein kernels'
+    launch counts (v5 from the first run, v6 from the third) and that
+    capture."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload_protein
 
@@ -1012,10 +1054,18 @@ def phase_protein_engine(n_orfs=2000):
                 os.environ["TAXTK_PROTEIN_SWAR"] = "1"
             pc.protein_wavefront.launches = 0
             pc.protein_swar.launches = 0
+            # row 4's launches in the default run, timed and the largest
+            # kept (the wrapper's count is left alone)
+            cap = LaunchCapture(pc, "protein_inputs", keep_largest_wavefront)
             try:
-                gff, secs, stats = run_cli(base + ["-l", log] + extra, aln)
+                with (cap.active() if label == "wavefront-cuda"
+                      else contextlib.nullcontext()):
+                    gff, secs, stats = run_cli(base + ["-l", log] + extra,
+                                               aln)
             finally:
                 os.environ.pop("TAXTK_PROTEIN_SWAR", None)
+            if label == "wavefront-cuda":
+                v5_cap, v5_ms = cap, cap.kernel_ms()
             counts = {"protein_wavefront": pc.protein_wavefront.launches,
                       "protein_swar": pc.protein_swar.launches}
             with open(log) as f:
@@ -1039,6 +1089,9 @@ def phase_protein_engine(n_orfs=2000):
     for name, n in launches.items():
         if n <= 0:
             fail(f"the protein main path never launched {name}")
+    if v5_cap.kept is None or len(v5_ms) != launches["protein_wavefront"]:
+        fail("the wavefront-cuda protein run's row-4 launches were not all "
+             "timed")
     if runs["wavefront"][4] != {"protein_wavefront": 0, "protein_swar": 0}:
         fail("the plain wavefront backend launched a kernel")
     rows = [ln for ln in bins.splitlines()
@@ -1052,8 +1105,10 @@ def phase_protein_engine(n_orfs=2000):
     for label, (_, _, secs, stats, counts) in runs.items():
         rec[label] = dict(engine_s=secs, maa_per_h=maa_h(secs),
                           launches=counts, stats=stats)
+    rec["wavefront-cuda"]["protein_wavefront_ms"] = v5_ms
+    rec["wavefront-cuda"]["protein_wavefront_ms_sum"] = sum(v5_ms)
     print(f"protein engine: {json.dumps(rec)}", flush=True)
-    return launches
+    return launches, v5_cap.kept
 
 
 KERNELS = (
@@ -1098,7 +1153,14 @@ def main() -> int:
                      wave, first=True)
     prot = phase_protein(int_rate)
     phase_golden()
-    launches.update(phase_protein_engine())
+    prot_launches, prot_launch = phase_protein_engine()
+    launches.update(prot_launches)
+    # row 4 at the engine's own shape, its main shape: the inputs of the
+    # wavefront-cuda protein run's largest launch, on the pool cache
+    B, L = prot_launch["host"][0].shape
+    _check_protein(prot_launch["host"], f"engine {B}x{L}", int_rate, 5, prot,
+                   swar=False, layouts=("pool cache",), first=True,
+                   by_nw=True)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "taxtk"))
     if bad:

@@ -24,10 +24,12 @@
 // of that pair, and nothing crosses between halves, so the two pairs may
 // have any lengths inside the bucket.
 //
-// Layout and wavefront as in protein_wavefront.cu: lanes take a strip of
-// 32 rows of both pairs, the strip sweeps the columns skewed by one step
-// per lane, the cell above and the b codes come down by __shfl_up_sync,
-// and a per-warp DP row in global scratch carries strip to strip.
+// Layout and wavefront: lanes take a strip of 32 rows of both pairs, the
+// strip sweeps the columns skewed by one step per lane, the cell above
+// and the b codes come down by __shfl_up_sync, and a per-warp DP row in
+// global scratch carries strip to strip; one warp walks its strips in
+// turn (protein_wavefront.cu's band of warps per pair is not carried over
+// yet).
 //
 // What bounds it on this card: integer issue, the same essential work per
 // cell as v5 (see protein_wavefront.cu); each instruction here serves two

@@ -13,7 +13,8 @@ DevicePoolCache (the main path) or, without a cache, a one-off pool of the
 round's deduped rows.  Two kernels compute the same function:
 
   * `protein_wavefront` (csrc/protein_wavefront.cu) replaces the v5 kernel
-    `_make_kernel` (:105);
+    `_make_kernel` (:105): a block per pair, its 32-row strips on a band
+    of warps (`kernel_geometry` sets out the launch);
   * `protein_swar` (csrc/protein_swar.cu) replaces the v6 SWAR kernel
     `_make_kernel_swar` (:267): two pairs per 32-bit word as 16-bit
     halves.  The entry takes it when TAXTK_PROTEIN_SWAR=1 (or swar=True)
@@ -45,6 +46,15 @@ _BIAS = 4  # BLOSUM62 min is -4 -> nibble range [0, 15]
 _CODES = 32  # 5-bit clamped code space: 27 residues + sentinel slots
 _NWORDS = _CODES // 8  # 4 int32 words hold 32 nibbles
 LANE = 128
+# row 4's geometry (csrc/protein_wavefront.cu): warps per band, at most
+# MAX_WARPS.  chip_smoke.py times nw = 4, 8 and 16 (ms_by_nw; on an NVIDIA
+# H100 80GB HBM3 at 700 W): 8 and 4 tie at L = 256 and 512, where 16 is
+# 8-30% slower (a band's 64-step lag per warp outweighs the bands it
+# saves); at L = 2048, 16 is 1.35x faster than 8.
+MAX_WARPS = 16
+BAND_WARPS = 8
+TALL_BAND_WARPS = 16  # for buckets of more than TALL_ROWS rows
+TALL_ROWS = 1024
 # the shared protein pool height class: one class serves every ORF-scale
 # bucket, taller buckets get their own pow2 class (pallas_protein.py:624)
 _POOL_HC_FLOOR = 1024
@@ -137,14 +147,47 @@ def _check_args(name, pool, a_col, b_col, alen, blen, M, N):
         raise ValueError(f"{name}: bad pool")
 
 
-def _launch(name, out, scratch, pool, a_col, b_col, alen, blen, N, *extra):
-    """Launch csrc/<name>.cu's entry taxtk_<name> on the current stream;
-    `extra` are its trailing int arguments."""
+def _bind(name, n_extra):
+    """csrc/<name>.cu's C entry taxtk_<name>, its argument types set;
+    n_extra: its trailing int arguments."""
     fn = getattr(cuda_build.load(name), "taxtk_" + name)
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, L] + [P] * 7 + [I, I] + [I] * len(extra) + [P]
+        fn.argtypes = [P, L] + [P] * 7 + [I, I] + [I] * n_extra + [P]
         fn.restype = ctypes.c_int
+    return fn
+
+
+def _lib():
+    """Row 4's C entry (v5)."""
+    return _bind("protein_wavefront", 1)
+
+
+def kernel_geometry(B, M, N, nw=None):
+    """(nw, bands) of a row-4 launch on a [B, M] x [B, N] bucket, from its
+    shape alone; nw may be forced (chip_smoke.py times several).
+
+    One block per pair.  A pair's rows (a, never transposed) are strips of
+    32, one warp each; a band is nw consecutive strips run concurrently,
+    and a pair's bands run in turn: band k's warp w takes rows
+    32 * (k * nw + w) + 1 .. + 32, and the band's warps are the first
+    min(nw, strips - k * nw).  nw is BAND_WARPS, or the most strips a pair
+    can have if fewer (TALL_BAND_WARPS above TALL_ROWS rows); bands is
+    the most bands a pair can have (the wrapper allocates the DP row
+    between bands only where it exceeds 1)."""
+    strips = -(-max(M, 1) // 32)
+    if nw is None:
+        nw = min(TALL_BAND_WARPS if M > TALL_ROWS else BAND_WARPS, strips)
+    elif not 1 <= nw <= MAX_WARPS:
+        raise ValueError(f"protein_wavefront: nw={nw} outside "
+                         f"[1, {MAX_WARPS}]")
+    return nw, -(-strips // nw)
+
+
+def _launch(fn, name, out, scratch, pool, a_col, b_col, alen, blen, N,
+            *extra):
+    """Launch C entry `fn` on the current stream; `extra` are its trailing
+    int arguments."""
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     rc = fn(pool.data_ptr(), pool.stride(0), a_col.data_ptr(),
             b_col.data_ptr(), alen.data_ptr(), blen.data_ptr(),
@@ -164,12 +207,14 @@ def protein_wavefront(pool, a_col, b_col, alen, blen, M: int, N: int):
         raise ValueError(f"protein_wavefront: unsupported device {pool.device}")
     _check_args("protein_wavefront", pool, a_col, b_col, alen, blen, M, N)
     B = a_col.shape[0]
+    nw, bands = kernel_geometry(B, M, N)
+    width = max(N, 1)
     out = torch.empty((2, B), dtype=torch.int32, device=pool.device)
-    # one DP row (score, stats) per pair: the carry between 32-row strips
-    scratch = torch.empty((max(B, 1), N + 1, 2), dtype=torch.int32,
-                          device=pool.device)
-    _launch("protein_wavefront", out, scratch, pool, a_col, b_col, alen,
-            blen, N)
+    # one DP row (score, stats) per pair: the carry between bands
+    scratch = torch.empty((max(B, 1) if bands > 1 else 1, width, 2),
+                          dtype=torch.int32, device=pool.device)
+    _launch(_lib(), "protein_wavefront", out, scratch, pool, a_col, b_col,
+            alen, blen, width, nw)
     protein_wavefront.launches += 1
     return out
 
@@ -196,8 +241,8 @@ def protein_swar(pool, a_col, b_col, alen, blen, M: int, N: int):
     # one packed DP row (score2, matches2, dc2, pad) per pair of pairs
     scratch = torch.empty((max(-(-B // 2), 1), N + 1, 4), dtype=torch.int32,
                           device=pool.device)
-    _launch("protein_swar", out, scratch, pool, a_col, b_col, alen, blen, N,
-            steps_end + 8)
+    _launch(_bind("protein_swar", 1), "protein_swar", out, scratch, pool,
+            a_col, b_col, alen, blen, N, steps_end + 8)
     protein_swar.launches += 1
     return out
 

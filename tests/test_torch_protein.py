@@ -325,6 +325,75 @@ def test_protein_kernel_matches_plain_on_card(kernel):
     assert fn.launches == n + 1
 
 
+@pytest.mark.parametrize("B,M,N,nw", [
+    (3, 1, 1, None), (5, 1, 40, 4), (4, 128, 50, 4), (4, 129, 50, 4),
+    (6, 512, 512, 16), (6, 513, 300, 16), (7, 300, 700, 8),
+    (9, 2048, 64, None), (2, 96, 33, 1)])
+def test_protein_kernel_geometry_covers_each_row_once(B, M, N, nw):
+    """Row 4's launch as csrc/protein_wavefront.cu reads its geometry: one
+    block per pair; bands of nw strips of 32 rows run in turn, band k's
+    warps being the first min(nw, strips - k * nw), warp w taking rows
+    32 * (k * nw + w) + 1 .. + 32.  Every row of every pair lies in
+    exactly one warp's strip, in order, within `bands` bands; a is never
+    transposed (rows are a's own length).  nw defaults to BAND_WARPS
+    (TALL_BAND_WARPS above TALL_ROWS rows), or the most strips a pair can
+    have if fewer."""
+    rng = np.random.default_rng(B + M + N)
+    al = rng.integers(0, M + 1, B)
+    al[0] = M  # the tallest pair the bucket holds
+    got_nw, bands = protein_cuda.kernel_geometry(B, M, N, nw)
+    strips_max = -(-M // 32)
+    default = (protein_cuda.TALL_BAND_WARPS if M > protein_cuda.TALL_ROWS
+               else protein_cuda.BAND_WARPS)
+    assert got_nw == (nw or min(default, strips_max))
+    assert 1 <= got_nw <= protein_cuda.MAX_WARPS
+    assert bands == -(-strips_max // got_nw)
+    for m in map(int, al):
+        strips = -(-m // 32)
+        rows, band = [], 0
+        for top in range(0, m, 32 * got_nw):  # the kernel's band loop
+            assert band < bands
+            for w in range(min(got_nw, strips - top // 32)):
+                rows += [i for i in range(top + 32 * w + 1,
+                                          top + 32 * w + 33) if i <= m]
+            band += 1
+        assert rows == list(range(1, m + 1))
+    with pytest.raises(ValueError):
+        protein_cuda.kernel_geometry(B, M, N, protein_cuda.MAX_WARPS + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [4, 16])
+def test_protein_wavefront_band_edges_on_card(monkeypatch, nw):
+    """Row 4 at band and strip edges against the plain version: every
+    (m, n) in {1, 31, 32, 33, 32 nw, 32 nw + 1, 2048}^2 with nw forced
+    (bands of nw warps; 2048 rows run several bands in turn), empty sides,
+    X and * codes, and pairs whose stats change when a and b are swapped
+    (the kernel must not transpose)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    real = protein_cuda.kernel_geometry
+    monkeypatch.setattr(protein_cuda, "kernel_geometry",
+                        lambda B, M, N, nw_=None: real(B, M, N, nw))
+    edges = (1, 31, 32, 33, 32 * nw, 32 * nw + 1, 2048)
+    lens = [(m, n) for m in edges for n in edges] + [(0, 5), (5, 0), (0, 0)]
+    rng = np.random.default_rng(nw)
+    B = len(lens)
+    ac, bc, al, bl = _batch(rng, B, (2048, 2048), (2048, 2048))
+    al[:] = [m for m, _ in lens]
+    bl[:] = [n for _, n in lens]
+    args = protein_cuda.protein_inputs(ac, bc, al, bl, torch.device("cuda"),
+                                       DevicePoolCache("cuda"))
+    plain = protein_cuda.protein_plain(*args)
+    swapped = protein_cuda.protein_plain(args[0], args[2], args[1], args[4],
+                                         args[3], args[6], args[5])
+    assert bool((swapped[0] == plain[0]).all())  # the score is symmetric
+    assert bool((swapped[1] != plain[1]).any())  # the stats are not
+    n = protein_cuda.protein_wavefront.launches
+    assert torch.equal(protein_cuda.protein_wavefront(*args), plain)
+    assert protein_cuda.protein_wavefront.launches == n + 1
+
+
 def test_engine_default_aligner_takes_the_engine_device():
     from taxtk_torch.engine.executor import RpaEngine
 
