@@ -11,9 +11,11 @@ Phases, one line each:
   kernels  each Myers kernel against its plain PyTorch version on the card
            and against the port's host C++ Myers, at main-path shapes, on
            the one-off pool and on the shared pool cache, with CUDA-event
-           times (the systolic kernel's plain version on the pool cache
-           only, the one-off layout held against the pool-cache output,
-           and the kernel also at each KW its shape admits, forced; the
+           times (the short kernel also at each W its K admits, forced,
+           on both layouts; the systolic kernel's plain version on the
+           pool cache only, the one-off layout held against the
+           pool-cache output, and the kernel also at each KW its shape
+           admits, forced; the
            chunked kernel against its plain version launch by launch,
            at two shapes); the DNA wavefront kernel against the host C++
            Myers and its plain version at the aligner's former bucket
@@ -26,12 +28,18 @@ Phases, one line each:
            oversized-round route through the chunked kernel); every GFF3
            must be byte-identical to native's and each kernel of each path
            must have launched; the myers-cuda run times each short and
-           each systolic launch with CUDA events and keeps its first
-           1024-pair systolic launch, the wavefront-cuda run times each
+           each systolic launch with CUDA events, prints each short launch
+           (rows, real pairs, N, K, bits, G/W, own word-chars, bound, ms)
+           and their sum, and keeps every short launch and its first
+           1024-pair systolic launch; the wavefront-cuda run times each
            DNA wavefront launch and keeps its largest;
-  kernels  the systolic kernel and the DNA wavefront kernel at those
-           launches, the engine's own shapes, against their plain versions
-           and the host C++ Myers, timed at each KW and each R;
+  kernels  the short kernel at its largest engine launch (the most own
+           word-chars) on both layouts, and at every engine launch, each
+           at each W, against its plain version and the host C++ Myers,
+           with the launches' sums at each W; the systolic kernel and the
+           DNA wavefront kernel at their captured launches, the engine's
+           own shapes, against their plain versions and the host C++
+           Myers, timed at each KW and each R;
   protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
            against their plain version, element for element, and their
            mutual scores against the host C++ NW, at main-path shapes on
@@ -102,10 +110,11 @@ KERNEL_SOURCES = ["myers_short", "myers_systolic", "myers_chunked",
 # together take 32 lanes of integer work a clock, the rate of the data
 # sheet's 67 TFLOP/s float32 (an FMA being two flops)
 INT32_LANES = 132 * 128
-# template arguments of the kernels that have them (myers_short<K, BITS>,
+# template arguments of the kernels that have them (myers_short<K, W, BITS>,
 # myers_chunked<KB = 64, BITS>, myers_systolic<BITS, KW> at KC = 32,
 # dna_wavefront<R>)
-TEMPLATE_ARGS = {"myers_short": ("K", "bits"), "myers_chunked": ("K", "bits"),
+TEMPLATE_ARGS = {"myers_short": ("K", "W", "bits"),
+                 "myers_chunked": ("K", "bits"),
                  "myers_systolic": ("bits", "KW"), "dna_wavefront": ("R",)}
 
 
@@ -278,7 +287,30 @@ def _systolic_kw_ms(args, want, reps):
     return out
 
 
-def _check(kind, pairs, label, int_rate, reps, record):
+def _short_w_ms(args, want, reps):
+    """Kernel 1 on `args` at each W its K admits (myers_cuda.W_SET), the
+    wrapper's kernel_geometry forced: each output held against `want` (the
+    plain version's, every element), and the CUDA-event median of each,
+    so that every run shows whether the wrapper's W was the faster."""
+    import torch
+
+    from taxtk_torch.ops import myers_cuda as mc
+
+    real = mc.kernel_geometry
+    out = {}
+    for w in mc.W_SET[args[6]]:
+        with mock.patch.object(mc, "kernel_geometry",
+                               lambda K, _w=None, w=w: real(K, w)):
+            got = mc.myers_short(*args)
+            if not torch.equal(got, want):
+                fail(f"short kernel at W={w} != plain version: "
+                     f"{int((got != want).sum())} outputs differ")
+            if reps:
+                out[f"W={w}"] = cuda_ms(lambda: mc.myers_short(*args), reps)
+    return out
+
+
+def _check(kind, pairs, label, int_rate, reps, record, first=False):
     """One case of a kernel, on both input layouts of its entry: a fresh
     shared DevicePoolCache, the main path's layout (pool stride = cache
     capacity, columns from dedupe and slots, peq sliced from the tall pool,
@@ -288,9 +320,11 @@ def _check(kind, pairs, label, int_rate, reps, record):
     against the host C++ Myers; the systolic kernel's plain version (some
     2-10 s a shape) runs on the pool-cache layout only, and its one-off
     layout's output is held against the pool-cache output (the same slot
-    layout) instead.  Then, on the cache layout, the kernel's CUDA-event
-    median over `reps` launches (the systolic kernel's also at each KW),
-    the plain version's time and the bound."""
+    layout) instead; the short kernel is held against it at each W its K
+    admits, on both layouts.  Then, on the cache layout, the kernel's
+    CUDA-event median over `reps` launches (also at each KW or W), the
+    plain version's time and the bound.  first: the main shape, put
+    first."""
     import torch
 
     from taxtk_torch.native import myers_batch
@@ -328,6 +362,11 @@ def _check(kind, pairs, label, int_rate, reps, record):
             err = max(err, int((got - plain).abs().max()))
             if layout == "pool cache":
                 plain_ms = ms
+            if kind == "short":
+                ms_by_w = _short_w_ms(args, plain,
+                                      reps if layout == "pool cache" else 0)
+                if layout == "pool cache":
+                    cache_ms_by_w = ms_by_w
         if not np.array_equal(post(got.cpu().numpy()), want):
             fail(f"{kind} kernel != host C++ Myers on {label} ({layout})")
     bits = cache_args[-1]
@@ -337,10 +376,68 @@ def _check(kind, pairs, label, int_rate, reps, record):
                plain_ms=plain_ms)
     if plain_once:
         rec["ms_by_kw"] = _systolic_kw_ms(cache_args, cache_got, reps)
+    else:
+        rec["K"] = cache_args[6]
+        rec["W"] = myers_cuda.kernel_geometry(rec["K"])[1]
+        rec["ms_by_w"] = cache_ms_by_w
     rec["bound_ms"], rec["bound_by"] = bound(
         np.minimum(al, bl), np.maximum(al, bl), bits, int_rate)
-    record.append(rec)
+    record.insert(0 if first else len(record), rec)
     print(f"kernels: {kind} {label}: {json.dumps(rec)}", flush=True)
+
+
+def _short_pairs(launch):
+    """The (a, b) pairs of a captured Kernel 1 launch."""
+    a_codes, b_codes, a_len, b_len = launch["host"]
+    return [(a_codes[i, : a_len[i]], b_codes[i, : b_len[i]])
+            for i in range(len(a_len))]
+
+
+def _check_short_launches(launches, reps):
+    """Every Kernel 1 launch of the myers-cuda engine run, as phase_engine
+    captured it, on a fresh pool cache: at each W its K admits against the
+    plain version (every element) and, after post, the host C++ Myers,
+    with each W's CUDA-event median.  Then the launches' summed times at
+    each W (a launch whose K admits one W counts it under both)."""
+    import torch
+
+    from taxtk_torch.native import myers_batch
+    from taxtk_torch.ops import myers_cuda
+    from taxtk_torch.ops.seqpool import DevicePoolCache
+
+    sums = {"W=1": 0.0, "W=2": 0.0}
+    for i, launch in enumerate(launches):
+        pairs = _short_pairs(launch)
+        args, post = myers_cuda.short_inputs(
+            *launch["host"], torch.device("cuda"),
+            pool_cache=DevicePoolCache("cuda"))
+        plain, plain_ms = timed(lambda: myers_cuda.myers_short_plain(*args))
+        if not np.array_equal(post(plain.cpu().numpy()), myers_batch(pairs)):
+            fail(f"short plain version != host C++ Myers at engine launch {i}")
+        ms_by_w = _short_w_ms(args, plain, reps)
+        for key in sums:
+            sums[key] += ms_by_w.get(key, min(ms_by_w.values()))
+        r = launch["rec"]
+        rec = dict(launch=i, rows=r["rows"], N=r["N"], K=r["K"], W=r["W"],
+                   ms_in_run=r["ms"], ms_by_w=ms_by_w, plain_ms=plain_ms,
+                   bound_ms=r["bound_ms"])
+        print(f"kernels: short engine launch {i}: {json.dumps(rec)}",
+              flush=True)
+    print(f"kernels: short engine launches: "
+          f"{json.dumps(dict(launches=len(launches), ms_sum_by_w=sums))}",
+          flush=True)
+
+
+def _check_short_engine(launches, int_rate, reps, record):
+    """Kernel 1 at the engine's own shape, its main shape: of the
+    myers-cuda engine run's launches (phase_engine captured them all), the
+    one with the most own word-chars, on both layouts against the plain
+    version and the host C++ Myers at each W (_check).  Recorded first."""
+    launch = max(launches, key=lambda x: x["rec"]["word_chars"])
+    r = launch["rec"]
+    _check("short", _short_pairs(launch),
+           f"engine {r['rows']}x{r['N']} K={r['K']}", int_rate, reps, record,
+           first=True)
 
 
 def _check_systolic_engine(cap, int_rate, reps, record):
@@ -544,13 +641,14 @@ def phase_kernels(int_rate, long_shapes=((64, 25_000), (16, 50_000),
                                          (4, 98_000))):
     """Each kernel against its plain version and the host C++ Myers.  The
     first case of each kernel is its main-path shape and gives its times
-    (Kernel 2's main shape, the engine's own launch, is checked after the
-    engine phase and put first)."""
+    (the main shapes of Kernels 1 and 2 and row 6, the engine's own
+    launches, are checked after the engine phase and put first)."""
     rng = np.random.default_rng(1234)
     short, long_, chunked, wave = [], [], [], []
-    # Kernel 1: the largest bucket the aligner forms at 2048 bp (its
-    # max_batch_cells cap allows 2048 pairs there; K = 64, 2-bit), then
-    # the 8192-pair group the aligner forms only for short texts
+    # Kernel 1: 2048 pairs at 2048 bp (the aligner's max_batch_cells cap
+    # allows 2048 pairs there, though the engine's launches hold at most
+    # 512 rows; K = 64, 2-bit), then the 8192-pair group the aligner forms
+    # only for short texts
     _check("short", make_pairs(rng, 2048, (1025, 2048), (1025, 2048)),
            "2048x2048", int_rate, 5, short)
     _check("short", make_pairs(rng, 8192, (1025, 2048), (1025, 2048)),
@@ -689,6 +787,37 @@ def keep_first_systolic(kept, host, out, B=1024):
                        for i in range(B)])
 
 
+def keep_short_launches(kept, host, out):
+    """Kernel 1's capture: a copy of the host inputs of every launch, with
+    the launch's K and bits (args[6], args[7] of short_inputs)."""
+    args = out[0]
+    return (kept or []) + [dict(host=tuple(np.array(x) for x in host),
+                                K=args[6], bits=args[7])]
+
+
+def short_launch_record(launch, ms, int_rate):
+    """What chip_smoke prints of one Kernel 1 engine launch: rows, real
+    pairs (rows less the aligner's trailing 1 x 1 dummy rows), N (the text
+    bucket, the padded width of the launch's codes), K, bits, the kernel's
+    geometry (G lanes a pair, W words a lane), the pairs' own word-chars
+    (the sum of n * ceil(m / 32)), the bound and the launch's CUDA-event
+    time."""
+    from taxtk_torch.ops.myers_cuda import kernel_geometry
+
+    a_codes, b_codes, a_len, b_len = launch["host"]
+    m = np.minimum(a_len, b_len).astype(np.int64)
+    n = np.maximum(a_len, b_len).astype(np.int64)
+    real = len(a_len)
+    while real and a_len[real - 1] == 1 and b_len[real - 1] == 1:
+        real -= 1
+    G, W = kernel_geometry(launch["K"])[:2]
+    rec = dict(rows=len(a_len), real=real, N=int(b_codes.shape[1]),
+               K=launch["K"], bits=launch["bits"], G=G, W=W,
+               word_chars=int((n * -(-m // 32)).sum()), ms=ms)
+    rec["bound_ms"], rec["bound_by"] = bound(m, n, launch["bits"], int_rate)
+    return rec
+
+
 def keep_largest_wavefront(kept, host, out):
     """Row 6's and row 4's capture: the host inputs of the launch with the
     most DP cells (each row's main shape since its redesign)."""
@@ -699,16 +828,17 @@ def keep_largest_wavefront(kept, host, out):
     return dict(cells=cells, host=host)
 
 
-def phase_engine(n_contigs=300):
+def phase_engine(int_rate, n_contigs=300):
     """The port's main paths on make_workload: nucleotide taxator with
     myers-cuda, with --dna-backend native, with wavefront-cuda, and with
     myers-cuda and the aligner's systolic_max_pairs = 0 (taxtk's
     oversized-round route, which has no CLI flag).  Each GFF3 must equal
     native's.  The myers-cuda run also times each Kernel 1 and Kernel 2
-    launch and keeps the first 1024-pair Kernel 2 launch's arguments; the
-    wavefront-cuda run times each row-6 launch and keeps the inputs of its
-    largest (LaunchCapture).
-    Returns each kernel's launch count from its path's run, and the two
+    launch, prints each Kernel 1 launch with its bound, and keeps the host
+    inputs of every Kernel 1 launch and the first 1024-pair Kernel 2
+    launch's arguments; the wavefront-cuda run times each row-6 launch and
+    keeps the inputs of its largest (LaunchCapture).
+    Returns each kernel's launch count from its path's run, and the three
     captures."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload
@@ -760,7 +890,7 @@ def phase_engine(n_contigs=300):
         capture = LaunchCapture(myers_systolic, "systolic_inputs",
                                 keep_first_systolic)
         short_cap = LaunchCapture(myers_cuda, "short_inputs",
-                                  lambda kept, host, out: None)
+                                  keep_short_launches)
         with capture.active(), short_cap.active():
             runs["myers-cuda"] = counted(lambda: run_cli(argv, aln),
                                          ("myers_short", "myers_systolic"))
@@ -769,8 +899,13 @@ def phase_engine(n_contigs=300):
             fail("the myers-cuda run made no 1024-pair Kernel 2 launch, or "
                  "its launches were not all timed")
         k1_ms = short_cap.kernel_ms()
-        if len(k1_ms) != launches["myers_short"]:
+        if (len(k1_ms) != launches["myers_short"]
+                or len(short_cap.kept) != len(k1_ms)):
             fail("the myers-cuda run's Kernel 1 launches were not all timed")
+        for i, (launch, ms) in enumerate(zip(short_cap.kept, k1_ms)):
+            launch["rec"] = short_launch_record(launch, ms, int_rate)
+            print(f"engine: myers_short launch {i}: "
+                  f"{json.dumps(launch['rec'])}", flush=True)
         runs["native"] = counted(
             lambda: run_cli(argv + ["--dna-backend", "native"], aln), ())
         runs["oversized"] = counted(run_oversized, ("myers_chunked",))
@@ -797,12 +932,15 @@ def phase_engine(n_contigs=300):
         rec[label] = dict(engine_s=secs, mbp_per_h=mbp_h(total_qbp, secs),
                           launches=counts, stats=stats)
     rec["myers-cuda"]["myers_systolic_ms"] = k2_ms
+    rec["myers-cuda"]["myers_short_ms"] = k1_ms
     rec["myers-cuda"]["myers_short_ms_sum"] = sum(k1_ms)
+    rec["myers-cuda"]["myers_short_bound_ms_sum"] = sum(
+        launch["rec"]["bound_ms"] for launch in short_cap.kept)
     rec["myers-cuda"]["myers_systolic_ms_sum"] = sum(k2_ms)
     rec["wavefront-cuda"]["dna_wavefront_ms"] = w_ms
     rec["wavefront-cuda"]["dna_wavefront_ms_sum"] = sum(w_ms)
     print(f"engine: {json.dumps(rec)}", flush=True)
-    return launches, capture.kept, wave_cap.kept
+    return launches, capture.kept, wave_cap.kept, short_cap.kept
 
 
 def protein_bound(al, bl, int_rate):
@@ -1144,7 +1282,10 @@ def main() -> int:
     int_rate = INT32_LANES * clock_mhz * 1e6
     phase_build()
     short, long_, chunked, wave = phase_kernels(int_rate)
-    launches, systolic_launch, wave_launch = phase_engine()
+    launches, systolic_launch, wave_launch, short_launches = phase_engine(
+        int_rate)
+    _check_short_engine(short_launches, int_rate, 5, short)
+    _check_short_launches(short_launches, 5)
     _check_systolic_engine(systolic_launch, int_rate, 5, long_)
     # row 6 at the engine's own shape, its main shape: the inputs of the
     # wavefront-cuda run's largest launch

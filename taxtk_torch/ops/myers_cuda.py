@@ -11,7 +11,8 @@ launch reads each pair's text column and peq column in place.
 `myers_short` is the wrapper: on CUDA tensors it launches the kernel and
 counts the launch in `myers_short.launches`; on CPU tensors it runs the
 plain version, `myers_short_plain`, which is the recurrence of
-myers_ref.py over the same pool and peq.
+myers_ref.py over the same pool and peq.  The kernel runs a group of lanes
+per pair, W pattern words per lane (`kernel_geometry`).
 """
 
 from __future__ import annotations
@@ -30,8 +31,31 @@ from .myers_chunked import batched_edit_distance_long
 from .myers_ref import myers_wavefront, peq_from_codes, unpack_columns
 from .seqpool import DevicePoolCache
 
-K_SET = (1, 2, 4, 8, 16, 32, 64)  # the kernel's template set of K
+# the kernel's template set: pattern words K, and at each K the words per
+# lane W it is built for (a group of K / W <= 32 lanes per pair)
+W_SET = {1: (1,), 2: (1,), 4: (1,), 8: (1,), 16: (1, 2), 32: (1, 2),
+         64: (2,)}
+K_SET = tuple(W_SET)
 MAX_K = K_SET[-1]  # 2048 bp: longer patterns take the chunked entry
+# the W a launch takes unless forced: W = 1 where both are built, the
+# faster at every K = 16 and 32 launch of the engine run on the H100
+# (chip_smoke.py's ms_sum_by_w)
+DEFAULT_W = {1: 1, 2: 1, 4: 1, 8: 1, 16: 1, 32: 1, 64: 2}
+THREADS = 128  # four warps a block
+
+
+def kernel_geometry(K: int, w: int | None = None):
+    """(G, W, pairs per warp, threads per block) of a Kernel 1 launch with
+    K pattern words: a group of G = K / W lanes per pair, W words per lane
+    (DEFAULT_W[K] unless w forces one of W_SET[K]), 32 / G pairs a warp.
+    From the shape alone: no tensor is read."""
+    if K not in W_SET:
+        raise ValueError(f"myers_short: K={K} not supported")
+    W = DEFAULT_W[K] if w is None else w
+    if W not in W_SET[K]:
+        raise ValueError(f"myers_short: W={W} not built at K={K}")
+    G = K // W
+    return G, W, 32 // G, THREADS
 
 
 def myers_short_plain(pool, txt_col, peq, pat_idx, nlen, mlen, K, bits):
@@ -51,7 +75,7 @@ def _lib():
     fn = lib.taxtk_myers_short
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, L, I, P, P, L, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P, L, I, P, P, L, P, P, P, P, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -67,6 +91,7 @@ def myers_short(pool, txt_col, peq, pat_idx, nlen, mlen, K: int, bits: int):
         raise ValueError(f"myers_short: unsupported device {pool.device}")
     if K not in K_SET or bits not in (2, 4):
         raise ValueError(f"myers_short: K={K} bits={bits} not supported")
+    W = kernel_geometry(K)[1]
     B = txt_col.shape[0]
     for name, t, dt in (("txt_col", txt_col, torch.int32),
                         ("pat_idx", pat_idx, torch.int32),
@@ -85,7 +110,7 @@ def myers_short(pool, txt_col, peq, pat_idx, nlen, mlen, K: int, bits: int):
     rc = _lib()(
         pool.data_ptr(), pool.stride(0), pool.shape[0], txt_col.data_ptr(),
         peq.data_ptr(), peq.shape[2], pat_idx.data_ptr(), nlen.data_ptr(),
-        mlen.data_ptr(), out.data_ptr(), B, K, bits, stream,
+        mlen.data_ptr(), out.data_ptr(), B, K, W, bits, stream,
     )
     cuda_build.check(rc, "myers_short launch")
     myers_short.launches += 1
