@@ -7,7 +7,8 @@ Phases, one line each:
   env      CUDA version, card name and power limit;
   build    nvcc builds the six kernels from taxtk_torch/csrc for sm_90a
            (the short, systolic and chunked Myers kernels, the min-plus DNA
-           wavefront, both protein kernels), one process each;
+           wavefront, both protein kernels), one process each; registers
+           and spills per template instance;
   kernels  each Myers kernel against its plain PyTorch version on the card
            and against the port's host C++ Myers, at main-path shapes, on
            the one-off pool and on the shared pool cache, with CUDA-event
@@ -43,8 +44,8 @@ Phases, one line each:
   protein  both protein kernels (v5 protein_wavefront, v6 protein_swar)
            against their plain version, element for element, and their
            mutual scores against the host C++ NW, at main-path shapes on
-           both pool layouts, with CUDA-event times (v5 also at each band
-           width nw at 1024 x 512 and 64 x 2048);
+           both pool layouts, with CUDA-event times (each also at each
+           band width nw at 1024 x 512 and 256 x 1024, v5 at 64 x 2048);
   golden   every protein pair of both SeqAn golden corpora through both
            protein kernels (v6 where its 16-bit domain holds);
   protein engine
@@ -52,10 +53,12 @@ Phases, one line each:
            wavefront-cuda, with --protein-backend wavefront (the plain
            version) and with TAXTK_PROTEIN_SWAR=1: GFF3s and logs
            byte-identical, both protein kernels launched; the
-           wavefront-cuda run times each v5 launch with CUDA events and
-           keeps its largest; then the GFF3 through the port's binner;
-  protein  v5 at that launch, the engine's own shape, against its plain
-           version and the host C++ NW, timed at each nw.
+           wavefront-cuda run times each v5 launch and the SWAR run each
+           v6 launch with CUDA events, and each keeps its largest; then
+           the GFF3 through the port's binner;
+  protein  v5 and v6 each at its largest launch, the engine's own shape,
+           against the plain version and the host C++ NW, timed at each
+           nw.
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -81,6 +84,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
+# clock cycles the card spins before each timed call's start event (0.5
+# ms at 1,980 MHz): longer than any wrapper's host work before its launch
+SPIN_CYCLES = 1_000_000
 # essential instructions of the Myers recurrence per 32-cell word per char,
 # after fusion: the word's match mask (one lookup or select), its MH
 # carry-in OR, Xv, Eq & Pv, the add, Xh and Ph (one LOP3 each), Mh, the PH
@@ -95,6 +101,12 @@ OPS_PER_WORD_CHAR = 13
 # increments (IADD3).  The table load issues on the load/store unit and
 # is not counted.
 OPS_PER_CELL = 9
+# the same cell two to a 32-bit word, as 16-bit halves, where every score
+# of the bucket fits one (v6's domain, _swar_fits): 13 instructions a word
+# (csrc/protein_swar.cu's header: the diagonal's add, the DPX max and
+# add-max, two masks of an IADD3 and a PRMT each, and each stat's add and
+# two LOP3 selects; the match bit rides in the table entry)
+SWAR_OPS_PER_CELL = 13 / 2
 # essential INT32 ops per min-plus DNA cell: the compare a == b, the DPX
 # three-way min of up, left and the diagonal (VIMNMX3), and the +1 on a
 # mismatch, an add predicated on the compare that writes over the
@@ -132,7 +144,10 @@ def smi(query: str) -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median of `reps` CUDA-event-timed calls of fn, after one warm-up."""
+    """Median of `reps` CUDA-event-timed calls of fn, after one warm-up.
+    Each start event waits on the card behind a spin of SPIN_CYCLES, so
+    that the window opens when fn's launch is already queued and holds
+    the kernel, not the host's work in its wrapper before the launch."""
     import torch
 
     fn()
@@ -140,6 +155,7 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -723,14 +739,15 @@ def run_cli(argv, aln_path):
 class LaunchCapture:
     """One kernel inside one engine run, seen from outside its wrapper
     (whose count it leaves alone): CUDA events recorded on the stream
-    around each launch (the module's `_lib()` call, patched), with no sync
-    inside the run, and what `keep(kept, host, out)` keeps of the entry's
-    inputs (`host`: the numpy a_codes, b_codes, a_len, b_len handed to the
-    module's `inputs` function, which is patched; `out`: what it
-    returned)."""
+    around each launch (the module's `lib` seam, `_lib()` by default,
+    patched), with no sync inside the run, and what `keep(kept, host,
+    out)` keeps of the entry's inputs (`host`: the numpy a_codes, b_codes,
+    a_len, b_len handed to the module's `inputs` function, which is
+    patched; `out`: what it returned)."""
 
-    def __init__(self, module, inputs, keep):
+    def __init__(self, module, inputs, keep, lib="_lib"):
         self.module, self.inputs, self.keep = module, inputs, keep
+        self.lib = lib
         self.events = []
         self.kept = None
 
@@ -738,7 +755,8 @@ class LaunchCapture:
     def active(self):
         import torch
 
-        real, lib = getattr(self.module, self.inputs), self.module._lib
+        real = getattr(self.module, self.inputs)
+        lib = getattr(self.module, self.lib)
 
         def capture_inputs(a_codes, b_codes, a_len, b_len, *rest, **kw):
             out = real(a_codes, b_codes, a_len, b_len, *rest, **kw)
@@ -760,7 +778,7 @@ class LaunchCapture:
             return launch
 
         with mock.patch.object(self.module, self.inputs, capture_inputs), \
-                mock.patch.object(self.module, "_lib", timed_lib):
+                mock.patch.object(self.module, self.lib, timed_lib):
             yield self
 
     def kernel_ms(self):
@@ -943,15 +961,19 @@ def phase_engine(int_rate, n_contigs=300):
     return launches, capture.kept, wave_cap.kept, short_cap.kept
 
 
-def protein_bound(al, bl, int_rate):
+def protein_bound(al, bl, int_rate, packed):
     """Least time (ms) for the protein DP of these pairs, and what bounds
-    it: OPS_PER_CELL INT32 ops per cell of each pair's own alen x blen
-    over the integer issue rate, against the bytes moved once (the codes of
-    both sides, four int32 of per-pair input, the int32 [3, B] result)
-    over the memory rate.  v5 and v6 do the same work."""
+    it: the INT32 ops per cell of each pair's own alen x blen over the
+    integer issue rate, against the bytes moved once (the codes of both
+    sides, four int32 of per-pair input, the int32 [3, B] result) over the
+    memory rate.  v5 and v6 compute the same function, so a shape has one
+    bound for both: SWAR_OPS_PER_CELL where its bucket lies in v6's
+    domain (packed), since two cells a word is then the least work;
+    OPS_PER_CELL outside it, where a score may not fit a 16-bit half."""
     al = np.asarray(al, np.int64)
     bl = np.asarray(bl, np.int64)
-    ops_ms = OPS_PER_CELL * float((al * bl).sum()) / int_rate * 1e3
+    per_cell = SWAR_OPS_PER_CELL if packed else OPS_PER_CELL
+    ops_ms = per_cell * float((al * bl).sum()) / int_rate * 1e3
     bytes_ms = float((al + bl).sum() + 28 * len(al)) / MEM_RATE * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
@@ -999,33 +1021,43 @@ def _bucket(pairs, L):
     return pad(ac), pad(bc), al, bl
 
 
-def _protein_nw_ms(args, want, reps, nw):
-    """Row 4 on `args` with kernel_geometry's nw forced: its output held
-    against `want` (the plain version's) and its CUDA-event median."""
+# each protein kernel's kernel_geometry swar flag and the band widths
+# timed
+PROTEIN_GEOMETRY = {"protein_wavefront": (False, (4, 8, 16)),
+                    "protein_swar": (True, (2, 4, 8, 16))}
+
+
+def _protein_nw_ms(name, args, want, reps, nw):
+    """Protein kernel `name` on `args` with its geometry's nw forced: its
+    output held against `want` (the plain version's) and its CUDA-event
+    median."""
     import torch
 
     from taxtk_torch.ops import protein_cuda as pc
 
     real = pc.kernel_geometry
+    fn = getattr(pc, name)
     with mock.patch.object(pc, "kernel_geometry",
-                           lambda B, M, N, nw_=None: real(B, M, N, nw)):
-        if not torch.equal(pc.protein_wavefront(*args), want):
-            fail(f"protein_wavefront at nw={nw} != plain version")
-        return cuda_ms(lambda: pc.protein_wavefront(*args), reps)
+                           lambda B, M, N, nw_=None, swar=False:
+                           real(B, M, N, nw, swar)):
+        if not torch.equal(fn(*args), want):
+            fail(f"{name} at nw={nw} != plain version")
+        return cuda_ms(lambda: fn(*args), reps)
 
 
-def _check_protein(batch, label, int_rate, reps, records, swar=True,
+def _check_protein(batch, label, int_rate, reps, records,
+                   names=("protein_wavefront", "protein_swar"),
                    layouts=("one-off pool", "pool cache"), first=False,
                    by_nw=False):
-    """One main-path launch (ac, bc, al, bl, padded to the bucket) of both
-    protein kernels (v6 with swar, inside its domain), on the entry's
+    """One main-path launch (ac, bc, al, bl, padded to the bucket) of the
+    named protein kernels (v6 only inside its domain), on the entry's
     layouts: the one-off pool and a fresh DevicePoolCache (the main
     path's, timed).  On each, every output element is held against the
     plain version on the same tensors, and the mutual scores against the
     host C++ NW.  Then, on the cache layout, each kernel's CUDA-event
     median over `reps` launches, the plain version's time and the bound;
-    with by_nw, row 4 also at each band width nw, forced.  first: the main
-    shape, put first."""
+    with by_nw, each kernel also at each band width nw of
+    PROTEIN_GEOMETRY, forced.  first: the main shape, put first."""
     import torch
 
     from taxtk_torch.native import protein_nw_batch
@@ -1036,9 +1068,9 @@ def _check_protein(batch, label, int_rate, reps, records, swar=True,
     M, N = ac.shape[1], bc.shape[1]
     pairs = [(ac[i, : al[i]], bc[i, : bl[i]]) for i in range(len(al))]
     want = protein_nw_batch(pairs, n_threads=0)
-    kernels = [("protein_wavefront", pc.protein_wavefront)]
-    if swar and pc._swar_fits(*pc._shapes(M, N)[:2]):
-        kernels.append(("protein_swar", pc.protein_swar))
+    packed = pc._swar_fits(*pc._shapes(M, N)[:2])
+    kernels = [(name, getattr(pc, name)) for name in names
+               if name != "protein_swar" or packed]
     err = 0
     for layout in layouts:
         cache = DevicePoolCache("cuda") if layout == "pool cache" else None
@@ -1053,18 +1085,18 @@ def _check_protein(batch, label, int_rate, reps, records, swar=True,
                 fail(f"{name} mutual scores != host C++ NW on {label} "
                      f"({layout})")
             err = max(err, int((got - plain).abs().max()))
-    bnd, by = protein_bound(al, bl, int_rate)
+    bnd, by = protein_bound(al, bl, int_rate, packed)
     for name, fn in kernels:
         rec = dict(label=label, pairs=len(al), L=int(M),
                    cells=int((al.astype(np.int64) * bl).sum()),
                    max_abs_err=err, ms=cuda_ms(lambda: fn(*args), reps),
                    plain_ms=plain_ms, bound_ms=bnd, bound_by=by)
-        if name == "protein_wavefront":
-            rec["nw"] = pc.kernel_geometry(len(al), M, N)[0]
-            if by_nw:
-                rec["ms_by_nw"] = {f"nw={w}": _protein_nw_ms(args, plain,
-                                                              reps, w)
-                                   for w in (4, 8, 16)}
+        swar, widths = PROTEIN_GEOMETRY[name]
+        rec["nw"] = pc.kernel_geometry(len(al), M, N, swar=swar)[0]
+        if by_nw:
+            rec["ms_by_nw"] = {f"nw={w}": _protein_nw_ms(name, args, plain,
+                                                          reps, w)
+                               for w in widths}
         recs = records.setdefault(name, [])
         recs.insert(0 if first else len(recs), rec)
         print(f"protein: {name} {label}: {json.dumps(rec)}", flush=True)
@@ -1093,6 +1125,10 @@ def phase_protein(int_rate):
     _check_protein(_bucket(make_protein_pairs(rng, 1500, (60, 400),
                                               empty=0.03, xstar=0.02), 512),
                    "ragged-60-400", int_rate, 3, records)
+    # v6's tallest bucket (the aligner's cap: 256 pairs at L = 1024),
+    # where kernel_geometry's nw rule for row 5 is set
+    _check_protein(_bucket(make_protein_pairs(rng, 256, (513, 1024)), 1024),
+                   "256x1024", int_rate, 3, records, by_nw=True)
     return records
 
 
@@ -1160,14 +1196,20 @@ def run_binner(gff3: str) -> str:
     return out.getvalue()
 
 
+# the protein engine runs whose kernel launches are timed: the kernel and
+# its wrapper's C-entry seam
+PROTEIN_CAPTURES = {"wavefront-cuda": ("protein_wavefront", "_lib"),
+                    "wavefront-cuda-swar": ("protein_swar", "_swar_lib")}
+
+
 def phase_protein_engine(n_orfs=2000):
     """The protein main path: taxator -b protein -l on bench.py's protein
     workload with wavefront-cuda, the plain wavefront backend and
     TAXTK_PROTEIN_SWAR=1; GFF3s and logs byte-identical; then the binner.
     The first run times each row-4 launch with CUDA events and keeps the
-    inputs of its largest (LaunchCapture).  Returns the protein kernels'
-    launch counts (v5 from the first run, v6 from the third) and that
-    capture."""
+    inputs of its largest (LaunchCapture), the third does so for row 5.
+    Returns the protein kernels' launch counts (v5 from the first run, v6
+    from the third) and the two captures, by kernel."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload_protein
 
@@ -1175,6 +1217,10 @@ def phase_protein_engine(n_orfs=2000):
 
     runs = {}
     launches = {}
+    caps = {label: LaunchCapture(pc, "protein_inputs",
+                                 keep_largest_wavefront, lib=lib)
+            for label, (_, lib) in PROTEIN_CAPTURES.items()}
+    ms = {}
     with tempfile.TemporaryDirectory() as d:
         t = time.time()
         aln, qfa, rfa, mapping, tax_dir, total_qaa = make_workload_protein(
@@ -1192,18 +1238,18 @@ def phase_protein_engine(n_orfs=2000):
                 os.environ["TAXTK_PROTEIN_SWAR"] = "1"
             pc.protein_wavefront.launches = 0
             pc.protein_swar.launches = 0
-            # row 4's launches in the default run, timed and the largest
-            # kept (the wrapper's count is left alone)
-            cap = LaunchCapture(pc, "protein_inputs", keep_largest_wavefront)
+            # row 4's launches in the default run and row 5's in the SWAR
+            # run, timed and the largest kept (the wrappers' counts are
+            # left alone)
+            cap = caps.get(label)
             try:
-                with (cap.active() if label == "wavefront-cuda"
-                      else contextlib.nullcontext()):
+                with cap.active() if cap else contextlib.nullcontext():
                     gff, secs, stats = run_cli(base + ["-l", log] + extra,
                                                aln)
             finally:
                 os.environ.pop("TAXTK_PROTEIN_SWAR", None)
-            if label == "wavefront-cuda":
-                v5_cap, v5_ms = cap, cap.kernel_ms()
+            if cap:
+                ms[label] = cap.kernel_ms()
             counts = {"protein_wavefront": pc.protein_wavefront.launches,
                       "protein_swar": pc.protein_swar.launches}
             with open(log) as f:
@@ -1227,9 +1273,10 @@ def phase_protein_engine(n_orfs=2000):
     for name, n in launches.items():
         if n <= 0:
             fail(f"the protein main path never launched {name}")
-    if v5_cap.kept is None or len(v5_ms) != launches["protein_wavefront"]:
-        fail("the wavefront-cuda protein run's row-4 launches were not all "
-             "timed")
+    for label, (name, _) in PROTEIN_CAPTURES.items():
+        if caps[label].kept is None or len(ms[label]) != launches[name]:
+            fail(f"the {label} protein run's {name} launches were not all "
+                 "timed")
     if runs["wavefront"][4] != {"protein_wavefront": 0, "protein_swar": 0}:
         fail("the plain wavefront backend launched a kernel")
     rows = [ln for ln in bins.splitlines()
@@ -1243,10 +1290,12 @@ def phase_protein_engine(n_orfs=2000):
     for label, (_, _, secs, stats, counts) in runs.items():
         rec[label] = dict(engine_s=secs, maa_per_h=maa_h(secs),
                           launches=counts, stats=stats)
-    rec["wavefront-cuda"]["protein_wavefront_ms"] = v5_ms
-    rec["wavefront-cuda"]["protein_wavefront_ms_sum"] = sum(v5_ms)
+    for label, (name, _) in PROTEIN_CAPTURES.items():
+        rec[label][f"{name}_ms"] = ms[label]
+        rec[label][f"{name}_ms_sum"] = sum(ms[label])
     print(f"protein engine: {json.dumps(rec)}", flush=True)
-    return launches, v5_cap.kept
+    return launches, {name: caps[label].kept
+                      for label, (name, _) in PROTEIN_CAPTURES.items()}
 
 
 KERNELS = (
@@ -1294,14 +1343,16 @@ def main() -> int:
                      wave, first=True)
     prot = phase_protein(int_rate)
     phase_golden()
-    prot_launches, prot_launch = phase_protein_engine()
+    prot_launches, prot_kept = phase_protein_engine()
     launches.update(prot_launches)
-    # row 4 at the engine's own shape, its main shape: the inputs of the
-    # wavefront-cuda protein run's largest launch, on the pool cache
-    B, L = prot_launch["host"][0].shape
-    _check_protein(prot_launch["host"], f"engine {B}x{L}", int_rate, 5, prot,
-                   swar=False, layouts=("pool cache",), first=True,
-                   by_nw=True)
+    # rows 4 and 5 at the engine's own shapes, their main shapes: the
+    # inputs of the largest launch of the wavefront-cuda protein run (row
+    # 4) and of the SWAR run (row 5), on the pool cache
+    for name, kept in prot_kept.items():
+        B, L = kept["host"][0].shape
+        _check_protein(kept["host"], f"engine {B}x{L}", int_rate, 5, prot,
+                       names=(name,), layouts=("pool cache",), first=True,
+                       by_nw=True)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "taxtk"))
     if bad:

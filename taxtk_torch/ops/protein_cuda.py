@@ -17,8 +17,10 @@ round's deduped rows.  Two kernels compute the same function:
     of warps (`kernel_geometry` sets out the launch);
   * `protein_swar` (csrc/protein_swar.cu) replaces the v6 SWAR kernel
     `_make_kernel_swar` (:267): two pairs per 32-bit word as 16-bit
-    halves.  The entry takes it when TAXTK_PROTEIN_SWAR=1 (or swar=True)
-    and the bucket lies in v6's domain (`_swar_fits`).
+    halves, a block per pair of pairs, their 32-row strips on a band of
+    warps (`kernel_geometry` with swar).  The entry takes it when
+    TAXTK_PROTEIN_SWAR=1 (or swar=True) and the bucket lies in v6's
+    domain (`_swar_fits`).
 
 On CUDA tensors each wrapper launches its kernel and counts the launch;
 on CPU tensors it runs `protein_plain`, the recurrence of
@@ -55,6 +57,14 @@ MAX_WARPS = 16
 BAND_WARPS = 8
 TALL_BAND_WARPS = 16  # for buckets of more than TALL_ROWS rows
 TALL_ROWS = 1024
+# row 5's warps per band (csrc/protein_swar.cu; kernel_geometry with
+# swar): one per SWAR_ROWS rows of the bucket, TALL_BAND_WARPS above
+# SWAR_TALL_ROWS.  chip_smoke.py times nw = 2, 4, 8 and 16 (ms_by_nw; on
+# an NVIDIA H100 80GB HBM3 at 700 W): 2 is the fastest at L = 256 (the
+# engine's largest launch), 4 at L = 512 and 16 at L = 1024, v6's
+# tallest bucket
+SWAR_ROWS = 128
+SWAR_TALL_ROWS = 512
 # the shared protein pool height class: one class serves every ORF-scale
 # bucket, taller buckets get their own pow2 class (pallas_protein.py:624)
 _POOL_HC_FLOOR = 1024
@@ -163,24 +173,39 @@ def _lib():
     return _bind("protein_wavefront", 1)
 
 
-def kernel_geometry(B, M, N, nw=None):
-    """(nw, bands) of a row-4 launch on a [B, M] x [B, N] bucket, from its
-    shape alone; nw may be forced (chip_smoke.py times several).
+def _swar_lib():
+    """Row 5's C entry (v6)."""
+    return _bind("protein_swar", 2)
 
-    One block per pair.  A pair's rows (a, never transposed) are strips of
-    32, one warp each; a band is nw consecutive strips run concurrently,
-    and a pair's bands run in turn: band k's warp w takes rows
-    32 * (k * nw + w) + 1 .. + 32, and the band's warps are the first
-    min(nw, strips - k * nw).  nw is BAND_WARPS, or the most strips a pair
-    can have if fewer (TALL_BAND_WARPS above TALL_ROWS rows); bands is
-    the most bands a pair can have (the wrapper allocates the DP row
-    between bands only where it exceeds 1)."""
+
+def kernel_geometry(B, M, N, nw=None, swar=False):
+    """(nw, bands) of a row-4 launch (row 5's with swar) on a [B, M] x
+    [B, N] bucket, from its shape alone; nw may be forced (chip_smoke.py
+    times several).
+
+    Row 4 has one block per pair, row 5 one per pair of pairs (pair p in
+    the low halves, pair p + ceil(B/2) in the high halves, the block's m
+    the larger of their a lengths).  A block's rows (a, never transposed)
+    are strips of 32, one warp each, a row a lane (in both halves); a band
+    is nw consecutive strips run concurrently, and the bands run in turn:
+    band k's warp w takes rows 32 * (k * nw + w) + 1 .. + 32, and the
+    band's warps are the first min(nw, strips - k * nw).  nw is
+    BAND_WARPS (TALL_BAND_WARPS above TALL_ROWS rows), or for row 5 one
+    warp per SWAR_ROWS rows, at least 1 (TALL_BAND_WARPS above
+    SWAR_TALL_ROWS rows); in either case at most the strips a pair can
+    have.  bands is the most bands a block can have (the wrapper
+    allocates the DP row between bands only where it exceeds 1)."""
     strips = -(-max(M, 1) // 32)
     if nw is None:
-        nw = min(TALL_BAND_WARPS if M > TALL_ROWS else BAND_WARPS, strips)
+        if swar:
+            nw = (TALL_BAND_WARPS if M > SWAR_TALL_ROWS
+                  else max(M // SWAR_ROWS, 1))
+        else:
+            nw = TALL_BAND_WARPS if M > TALL_ROWS else BAND_WARPS
+        nw = min(nw, strips)
     elif not 1 <= nw <= MAX_WARPS:
-        raise ValueError(f"protein_wavefront: nw={nw} outside "
-                         f"[1, {MAX_WARPS}]")
+        name = "protein_swar" if swar else "protein_wavefront"
+        raise ValueError(f"{name}: nw={nw} outside [1, {MAX_WARPS}]")
     return nw, -(-strips // nw)
 
 
@@ -225,8 +250,8 @@ protein_wavefront.launches = 0
 def protein_swar(pool, a_col, b_col, alen, blen, M: int, N: int):
     """Row-5 kernel (v6) wrapper: the same inputs and result as
     protein_wavefront, two pairs per 32-bit word (pair p in the low
-    halves, pair p + ceil(B/2) in the high halves).  Raises for a bucket
-    outside v6's domain (_swar_fits)."""
+    halves, pair p + ceil(B/2) in the high halves; kernel_geometry sets
+    out the launch).  Raises for a bucket outside v6's domain (_swar_fits)."""
     if pool.device.type == "cpu":
         return protein_plain(pool, a_col, b_col, alen, blen, M, N)
     if pool.device.type != "cuda":
@@ -237,12 +262,15 @@ def protein_swar(pool, a_col, b_col, alen, blen, M: int, N: int):
                          "16-bit halves' domain")
     _check_args("protein_swar", pool, a_col, b_col, alen, blen, M, N)
     B = a_col.shape[0]
+    nw, bands = kernel_geometry(B, M, N, swar=True)
+    width = max(N, 1)
     out = torch.empty((2, B), dtype=torch.int32, device=pool.device)
-    # one packed DP row (score2, matches2, dc2, pad) per pair of pairs
-    scratch = torch.empty((max(-(-B // 2), 1), N + 1, 4), dtype=torch.int32,
-                          device=pool.device)
-    _launch(_bind("protein_swar", 1), "protein_swar", out, scratch, pool,
-            a_col, b_col, alen, blen, N, steps_end + 8)
+    # one packed DP row (score2, matches2, dc2, pad) per pair of pairs:
+    # the carry between bands
+    scratch = torch.empty((max(-(-B // 2), 1) if bands > 1 else 1, width, 4),
+                          dtype=torch.int32, device=pool.device)
+    _launch(_swar_lib(), "protein_swar", out, scratch, pool, a_col, b_col,
+            alen, blen, width, steps_end + 8, nw)
     protein_swar.launches += 1
     return out
 

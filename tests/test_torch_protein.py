@@ -394,6 +394,96 @@ def test_protein_wavefront_band_edges_on_card(monkeypatch, nw):
     assert protein_cuda.protein_wavefront.launches == n + 1
 
 
+@pytest.mark.parametrize("B,M,N,nw", [
+    (1, 1, 1, None), (1, 300, 200, 4), (2, 32, 33, None), (5, 128, 50, 4),
+    (6, 129, 50, 4), (7, 512, 512, 16), (8, 513, 300, 16),
+    (9, 1024, 1024, None), (3, 96, 33, 1)])
+def test_protein_swar_geometry_covers_each_row_once(B, M, N, nw):
+    """Row 5's launch as csrc/protein_swar.cu reads its geometry: one block
+    per pair of pairs, pair p in the low halves and p + ceil(B/2) in the
+    high halves, so every pair lies in exactly one half of one block (odd
+    B leaves the last block without a high pair).  A block's m is the
+    larger of its pairs' a lengths (0 for a pair with an empty side);
+    bands of nw strips of 32 rows run in turn, band k's warps being the
+    first min(nw, strips - k * nw), warp w taking rows
+    32 * (k * nw + w) + 1 .. + 32 of both pairs.  Every row of both
+    pairs lies in exactly one warp's strip, in order, within `bands`
+    bands, and the row holding each pair's final cell in exactly one
+    lane.  nw defaults to one warp per SWAR_ROWS rows of the bucket, at
+    least 1, and TALL_BAND_WARPS above SWAR_TALL_ROWS rows."""
+    rng = np.random.default_rng(B + M + N)
+    al = rng.integers(0, M + 1, B)
+    bl = rng.integers(0, N + 1, B)
+    al[0], bl[0] = M, max(N, 1)  # the tallest pair the bucket holds
+    got_nw, bands = protein_cuda.kernel_geometry(B, M, N, nw, swar=True)
+    strips_max = -(-M // 32)
+    default = min(protein_cuda.TALL_BAND_WARPS
+                  if M > protein_cuda.SWAR_TALL_ROWS
+                  else max(M // protein_cuda.SWAR_ROWS, 1), strips_max)
+    assert got_nw == (nw or default)
+    assert 1 <= got_nw <= protein_cuda.MAX_WARPS
+    assert bands == -(-strips_max // got_nw)
+    half = (B + 1) // 2
+    seen = []
+    for blk in range(half):  # the kernel's blocks
+        pair = [blk] + ([blk + half] if blk + half < B else [])
+        seen += pair
+        own = [int(al[p]) if al[p] and bl[p] else 0 for p in pair]
+        m = max(own)
+        strips = -(-m // 32)
+        rows, band, holders = [], 0, [0] * len(own)
+        for top in range(0, m, 32 * got_nw):  # the kernel's band loop
+            assert band < bands
+            for w in range(min(got_nw, strips - top // 32)):
+                row0 = top + 32 * w
+                rows += list(range(row0 + 1, row0 + 33))
+                for h, mh in enumerate(own):  # the harvest lane's test
+                    holders[h] += 0 <= mh - row0 - 1 < 32
+            band += 1
+        for mh, held in zip(own, holders):
+            assert [i for i in rows if i <= mh] == list(range(1, mh + 1))
+            assert held == (mh > 0)
+    assert sorted(seen) == list(range(B))
+    for bad in (0, protein_cuda.MAX_WARPS + 1):
+        with pytest.raises(ValueError):
+            protein_cuda.kernel_geometry(B, M, N, bad, swar=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [4, 16])
+def test_protein_swar_band_edges_on_card(monkeypatch, nw):
+    """Row 5 at band and strip edges against the plain version, with nw
+    forced: in a 1024 bucket (inside v6's domain), the low halves take
+    every (m, n) in {1, 31, 32, 33, 32 nw, 32 nw + 1, 1024}^2 and the high
+    halves the same list turned by 9, so the two pairs of a block differ
+    and the shorter is harvested mid-sweep; an empty side in one half
+    only; X and * codes; an odd B, whose last block has no high pair."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    real = protein_cuda.kernel_geometry
+    monkeypatch.setattr(protein_cuda, "kernel_geometry",
+                        lambda B, M, N, nw_=None, swar=False:
+                        real(B, M, N, nw, swar))
+    edges = (1, 31, 32, 33, 32 * nw, 32 * nw + 1, 1024)
+    lens = [(m, n) for m in edges for n in edges]
+    low = lens + [(0, 5), (40, 0), (1024, 1024)]
+    high = lens[9:] + lens[:9] + [(33, 40), (5, 0)]
+    assert len(low) == len(high) + 1
+    rng = np.random.default_rng(nw)
+    B = len(low) + len(high)
+    ac, bc, al, bl = _batch(rng, B, (1024, 1024), (1024, 1024))
+    al[:] = [m for m, _ in low + high]
+    bl[:] = [n for _, n in low + high]
+    M, N = ac.shape[1], bc.shape[1]
+    assert protein_cuda._swar_fits(*protein_cuda._shapes(M, N)[:2])
+    args = protein_cuda.protein_inputs(ac, bc, al, bl, torch.device("cuda"),
+                                       DevicePoolCache("cuda"))
+    n = protein_cuda.protein_swar.launches
+    assert torch.equal(protein_cuda.protein_swar(*args),
+                       protein_cuda.protein_plain(*args))
+    assert protein_cuda.protein_swar.launches == n + 1
+
+
 def test_engine_default_aligner_takes_the_engine_device():
     from taxtk_torch.engine.executor import RpaEngine
 
