@@ -17,8 +17,8 @@ Phases, one line each:
            pool cache only, the one-off layout held against the
            pool-cache output, and the kernel also at each KW its shape
            admits, forced; the
-           chunked kernel against its plain version launch by launch,
-           at two shapes); the DNA wavefront kernel against the host C++
+           chunked kernel against its plain version at two shapes); the
+           DNA wavefront kernel against the host C++
            Myers and its plain version at the aligner's former bucket
            shapes, timed at each R (rows per lane) and, for the single
            long pair, at each band width nw;
@@ -32,9 +32,16 @@ Phases, one line each:
            each systolic launch with CUDA events, prints each short launch
            (rows, real pairs, N, K, bits, G/W, own word-chars, bound, ms)
            and their sum, and keeps every short launch and its first
-           1024-pair systolic launch; the wavefront-cuda run times each
-           DNA wavefront launch and keeps its largest;
-  kernels  the short kernel at its largest engine launch (the most own
+           1024-pair systolic launch; the oversized run times each
+           chunked launch behind a spin, prints each (entry call, pattern
+           block, pairs, texts' longest and summed lengths, bits, own
+           word-chars, bound, ms) and their sum, and keeps the host inputs
+           of every entry call; the wavefront-cuda run times each DNA
+           wavefront launch and keeps its largest;
+  kernels  the chunked kernel at its largest launch of the oversized run
+           (the most own word-chars), its main shape, on both layouts,
+           against the host C++ Myers and the plain version;
+           the short kernel at its largest engine launch (the most own
            word-chars) on both layouts, and at every engine launch, each
            at each W, against its plain version and the host C++ Myers,
            with the launches' sums at each W; the systolic kernel and the
@@ -123,10 +130,10 @@ KERNEL_SOURCES = ["myers_short", "myers_systolic", "myers_chunked",
 # sheet's 67 TFLOP/s float32 (an FMA being two flops)
 INT32_LANES = 132 * 128
 # template arguments of the kernels that have them (myers_short<K, W, BITS>,
-# myers_chunked<KB = 64, BITS>, myers_systolic<BITS, KW> at KC = 32,
+# myers_chunked<BITS> at KB = 64, myers_systolic<BITS, KW> at KC = 32,
 # dna_wavefront<R>)
 TEMPLATE_ARGS = {"myers_short": ("K", "W", "bits"),
-                 "myers_chunked": ("K", "bits"),
+                 "myers_chunked": ("bits",),
                  "myers_systolic": ("bits", "KW"), "dna_wavefront": ("R",)}
 
 
@@ -496,28 +503,51 @@ def chunked_bound(n, words, launches, Kb, bits, int_rate):
     """Least time (ms) of chunked-kernel launches, and what bounds it: the
     essential Myers ops (OPS_PER_WORD_CHAR per 32-cell word per char) of
     `words` [B] pattern words per pair over its own text, over the integer
-    issue rate, against the bytes `launches` [B] launches move once per pair (packed
-    text, the block's Kb peq words, the carry stream read and written, one
-    byte each per char, and nine int32 of per-pair input and output) over
-    the memory rate."""
+    issue rate, against the bytes `launches` [B] launches move once per
+    pair (packed text, the block's Kb peq words, the packed carry stream
+    read and written, a 32-bit word each per 16 chars, and nine int32 of
+    per-pair input and output) over the memory rate."""
     n = np.asarray(n, np.int64)
     ops_ms = OPS_PER_WORD_CHAR * float((n * words).sum()) / int_rate * 1e3
-    per_launch = -(-n // (8 // bits)) + 2 * n + Kb * 5 * 4 + 9 * 4
+    per_launch = (-(-n // (8 // bits)) + 2 * 4 * -(-n // 16) + Kb * 5 * 4
+                  + 9 * 4)
     bytes_ms = float((launches * per_launch).sum()) / MEM_RATE * 1e3
     if ops_ms >= bytes_ms:
         return ops_ms, "operations"
     return bytes_ms, "bytes"
 
 
-def _first_launch(args):
-    """The chunked kernel's first launch (block 0) of the entry's args."""
+def _block_launch(args, p=0):
+    """The arguments of the chunked kernel's launch of pattern block p for
+    the entry's args: the launches of the blocks before it run on the card
+    (the kernel) to give its carries, score and res."""
     import torch
 
+    from taxtk_torch.ops import myers_chunked as mc
+
     pool, txt_col, peq, pat_idx, mword, mbit, nlen, mlen, N, Kb, bits = args
-    hin = torch.ones((N, txt_col.shape[0]), dtype=torch.int8,
-                     device=pool.device)
-    return (pool, txt_col, peq[:Kb], pat_idx, mword, mbit, nlen, mlen,
-            torch.maximum(mlen, nlen), hin, bits)
+    score, res = mlen, torch.maximum(mlen, nlen)
+    hin = mc.initial_carries(N, txt_col.shape[0], pool.device)
+    for q in range(p + 1):
+        step = (pool, txt_col, peq[q * Kb : (q + 1) * Kb], pat_idx,
+                mword - q * Kb, mbit, nlen, score, res, hin, bits)
+        if q < p:
+            score, res, hin = mc.myers_chunked(*step)
+    return step
+
+
+def _chunked_equal(a, b, N, nlen):
+    """Whether two outputs (score, res, carry stream) of one chunked launch
+    agree: score and res everywhere, the carries at every char j < nlen,
+    all a later launch reads."""
+    import torch
+
+    from taxtk_torch.ops import myers_chunked as mc
+
+    live = torch.arange(N, device=nlen.device)[:, None] < nlen[None]
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(mc.unpack_carries(a[2], N)[live],
+                            mc.unpack_carries(b[2], N)[live]))
 
 
 def _check_chunked(pairs, label, int_rate, reps, record, plain):
@@ -549,18 +579,15 @@ def _check_chunked(pairs, label, int_rate, reps, record, plain):
         if not np.array_equal(post(got.cpu().numpy()), want):
             fail(f"chunked kernel != host C++ Myers on {label} ({layout})")
     entry_ms = start.elapsed_time(end)
-    step = _first_launch(args)
+    step = _block_launch(args)
     err, plain_ms = 0, None
     if plain:
         got = mc.myers_chunked(*step)
-        (p_score, p_res, p_h), plain_ms = timed(
-            lambda: mc.myers_chunked_plain(*step))
-        live = torch.arange(args[8], device="cuda")[:, None] < args[6][None]
-        if not (torch.equal(got[0], p_score) and torch.equal(got[1], p_res)
-                and torch.equal(got[2][live], p_h[live])):
+        want_step, plain_ms = timed(lambda: mc.myers_chunked_plain(*step))
+        if not _chunked_equal(got, want_step, args[8], args[6]):
             fail(f"chunked kernel != plain version on {label}")
-        err = max(int((got[0] - p_score).abs().max()),
-                  int((got[1] - p_res).abs().max()))
+        err = max(int((got[0] - want_step[0]).abs().max()),
+                  int((got[1] - want_step[1]).abs().max()))
     Kb, bits = args[9], args[10]
     m, n = np.minimum(al, bl), np.maximum(al, bl)
     words = -(-m // 32)
@@ -743,11 +770,13 @@ class LaunchCapture:
     patched), with no sync inside the run, and what `keep(kept, host,
     out)` keeps of the entry's inputs (`host`: the numpy a_codes, b_codes,
     a_len, b_len handed to the module's `inputs` function, which is
-    patched; `out`: what it returned)."""
+    patched; `out`: what it returned).  spin: each start event waits
+    behind a spin of SPIN_CYCLES on the card, as in cuda_ms, so that the
+    window holds the launch and not the host's call into the library."""
 
-    def __init__(self, module, inputs, keep, lib="_lib"):
+    def __init__(self, module, inputs, keep, lib="_lib", spin=False):
         self.module, self.inputs, self.keep = module, inputs, keep
-        self.lib = lib
+        self.lib, self.spin = lib, spin
         self.events = []
         self.kept = None
 
@@ -770,6 +799,8 @@ class LaunchCapture:
             def launch(*a):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
+                if self.spin:
+                    torch.cuda._sleep(SPIN_CYCLES)
                 start.record()
                 rc = fn(*a)
                 end.record()
@@ -846,6 +877,95 @@ def keep_largest_wavefront(kept, host, out):
     return dict(cells=cells, host=host)
 
 
+def keep_chunked_calls(kept, host, out):
+    """Row 3's capture: a copy of the host inputs of every entry call, with
+    its launches (one per pattern block of Kb words, args[9]) and bits."""
+    args = out[0]
+    Kb = args[9]
+    return (kept or []) + [dict(host=tuple(np.array(x) for x in host),
+                                blocks=args[2].shape[0] // Kb, Kb=Kb,
+                                bits=args[10])]
+
+
+def chunked_launch_records(calls, ms, int_rate):
+    """What chip_smoke prints of each row-3 launch of the oversized run, in
+    launch order: its entry call and pattern block, pairs, the texts'
+    longest and summed lengths, bits, the pairs' own word-chars in this
+    block (the sum of n * the pattern words of the pair that lie in it),
+    the launch's CUDA-event time and its bound."""
+    recs = []
+    for c, call in enumerate(calls):
+        _, _, a_len, b_len = call["host"]
+        m = np.minimum(a_len, b_len).astype(np.int64)
+        n = np.maximum(a_len, b_len).astype(np.int64)
+        words = -(-m // 32)
+        Kb, bits = call["Kb"], call["bits"]
+        for p in range(call["blocks"]):
+            own = np.clip(words - p * Kb, 0, Kb)
+            rec = dict(call=c, block=p, pairs=len(a_len),
+                       text_max=int(n.max()), text_sum=int(n.sum()),
+                       bits=bits, word_chars=int((n * own).sum()),
+                       ms=ms[len(recs)])
+            rec["bound_ms"], rec["bound_by"] = chunked_bound(
+                n, own, 1, Kb, bits, int_rate)
+            recs.append(rec)
+    return recs
+
+
+def _check_chunked_engine(calls, recs, int_rate, reps, record):
+    """Row 3 at the engine's own shape, its main shape: of the oversized
+    run's launches, the one with the most own word-chars.  Its entry call
+    runs on both layouts of the entry (the one-off pool and a fresh
+    DevicePoolCache), its distances against the host C++ Myers; the launch
+    itself, on the cache layout, against the plain version (score, res and
+    the carries a later launch reads), and on the one-off layout against
+    the cache layout's output.  Then its CUDA-event median, the plain
+    version's time and the bound.  Recorded first."""
+    import torch
+
+    from taxtk_torch.native import myers_batch
+    from taxtk_torch.ops import myers_chunked as mc
+    from taxtk_torch.ops.seqpool import DevicePoolCache
+
+    r = max(recs, key=lambda x: x["word_chars"])
+    host = calls[r["call"]]["host"]
+    a_codes, b_codes, a_len, b_len = host
+    pairs = [(a_codes[i, : a_len[i]], b_codes[i, : b_len[i]])
+             for i in range(len(a_len))]
+    want = myers_batch(pairs)
+    got = {}
+    for layout in ("one-off pool", "pool cache"):
+        cache = DevicePoolCache("cuda") if layout == "pool cache" else None
+        args, post = mc.chunked_inputs(*host, torch.device("cuda"),
+                                       pool_cache=cache)
+        if not np.array_equal(post(mc.run_chunked(*args).cpu().numpy()),
+                              want):
+            fail(f"chunked kernel != host C++ Myers at the engine shape "
+                 f"({layout})")
+        step = _block_launch(args, r["block"])
+        got[layout] = mc.myers_chunked(*step)
+    N, nlen = args[8], args[6]
+    plain, plain_ms = timed(lambda: mc.myers_chunked_plain(*step))
+    if not _chunked_equal(got["pool cache"], plain, N, nlen):
+        fail("chunked kernel != plain version at the engine shape")
+    if not _chunked_equal(got["one-off pool"], got["pool cache"], N, nlen):
+        fail("chunked kernel differs between layouts at the engine shape")
+    label = (f"engine {r['pairs']}x{r['text_max']} block {r['block']} "
+             f"(launch {recs.index(r)})")
+    rec = dict(label=label, pairs=r["pairs"], bits=r["bits"],
+               block=r["block"], text_max=r["text_max"],
+               text_sum=r["text_sum"], word_chars=r["word_chars"],
+               max_abs_err=max(
+                   int((got["pool cache"][0] - plain[0]).abs().max()),
+                   int((got["pool cache"][1] - plain[1]).abs().max())),
+               plain_checked=True, ms_in_run=r["ms"],
+               ms=cuda_ms(lambda: mc.myers_chunked(*step), reps),
+               plain_ms=plain_ms, bound_ms=r["bound_ms"],
+               bound_by=r["bound_by"])
+    record.insert(0, rec)
+    print(f"kernels: chunked {label}: {json.dumps(rec)}", flush=True)
+
+
 def phase_engine(int_rate, n_contigs=300):
     """The port's main paths on make_workload: nucleotide taxator with
     myers-cuda, with --dna-backend native, with wavefront-cuda, and with
@@ -854,10 +974,12 @@ def phase_engine(int_rate, n_contigs=300):
     native's.  The myers-cuda run also times each Kernel 1 and Kernel 2
     launch, prints each Kernel 1 launch with its bound, and keeps the host
     inputs of every Kernel 1 launch and the first 1024-pair Kernel 2
-    launch's arguments; the wavefront-cuda run times each row-6 launch and
+    launch's arguments; the oversized run times each row-3 launch behind
+    the spin, prints each with its bound, and keeps the host inputs of
+    every entry call; the wavefront-cuda run times each row-6 launch and
     keeps the inputs of its largest (LaunchCapture).
-    Returns each kernel's launch count from its path's run, and the three
-    captures."""
+    Returns each kernel's launch count from its path's run, and the four
+    captures (row 3's with its launch records)."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload
 
@@ -926,7 +1048,20 @@ def phase_engine(int_rate, n_contigs=300):
                   f"{json.dumps(launch['rec'])}", flush=True)
         runs["native"] = counted(
             lambda: run_cli(argv + ["--dna-backend", "native"], aln), ())
-        runs["oversized"] = counted(run_oversized, ("myers_chunked",))
+        # every row-3 launch of the oversized run timed behind the spin,
+        # the host inputs of each entry call kept
+        chunk_cap = LaunchCapture(myers_chunked, "chunked_inputs",
+                                  keep_chunked_calls, spin=True)
+        with chunk_cap.active():
+            runs["oversized"] = counted(run_oversized, ("myers_chunked",))
+        c_ms = chunk_cap.kernel_ms()
+        if (len(c_ms) != launches["myers_chunked"] or chunk_cap.kept is None
+                or sum(c["blocks"] for c in chunk_cap.kept) != len(c_ms)):
+            fail("the oversized run's row-3 launches were not all timed")
+        c_recs = chunked_launch_records(chunk_cap.kept, c_ms, int_rate)
+        for i, r in enumerate(c_recs):
+            print(f"engine: myers_chunked launch {i}: {json.dumps(r)}",
+                  flush=True)
         wave_cap = LaunchCapture(dna_wavefront, "wavefront_inputs",
                                  keep_largest_wavefront)
         with wave_cap.active():
@@ -955,10 +1090,15 @@ def phase_engine(int_rate, n_contigs=300):
     rec["myers-cuda"]["myers_short_bound_ms_sum"] = sum(
         launch["rec"]["bound_ms"] for launch in short_cap.kept)
     rec["myers-cuda"]["myers_systolic_ms_sum"] = sum(k2_ms)
+    rec["oversized"]["myers_chunked_ms"] = c_ms
+    rec["oversized"]["myers_chunked_ms_sum"] = sum(c_ms)
+    rec["oversized"]["myers_chunked_bound_ms_sum"] = sum(
+        r["bound_ms"] for r in c_recs)
     rec["wavefront-cuda"]["dna_wavefront_ms"] = w_ms
     rec["wavefront-cuda"]["dna_wavefront_ms_sum"] = sum(w_ms)
     print(f"engine: {json.dumps(rec)}", flush=True)
-    return launches, capture.kept, wave_cap.kept, short_cap.kept
+    return (launches, capture.kept, wave_cap.kept, short_cap.kept,
+            (chunk_cap.kept, c_recs))
 
 
 def protein_bound(al, bl, int_rate, packed):
@@ -1331,8 +1471,9 @@ def main() -> int:
     int_rate = INT32_LANES * clock_mhz * 1e6
     phase_build()
     short, long_, chunked, wave = phase_kernels(int_rate)
-    launches, systolic_launch, wave_launch, short_launches = phase_engine(
-        int_rate)
+    (launches, systolic_launch, wave_launch, short_launches,
+     chunked_launches) = phase_engine(int_rate)
+    _check_chunked_engine(*chunked_launches, int_rate, 5, chunked)
     _check_short_engine(short_launches, int_rate, 5, short)
     _check_short_launches(short_launches, 5)
     _check_systolic_engine(systolic_launch, int_rate, 5, long_)

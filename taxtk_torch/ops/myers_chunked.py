@@ -6,17 +6,23 @@ Port of taxtk/ops/pallas_myers.py::batched_edit_distance_pallas_myers_long
 one-off pool (:577-607).  Sequences are deduped into pool rows, peq is
 built on the device for all Kp = n_blocks * Kb pattern words, and one
 launch per block of Kb words runs every pair over its whole text.  The
-carries at the block edge go from launch to launch through an int8 stream
-[N, B] (ph | mh << 1), which starts as all ones (ph = 1, mh = 0 above word
-0); two buffers swap between launches.  Score and result ride along; the
-last launch leaves the distances.
+carries at the block edge go from launch to launch through a carry
+stream, which starts as ph = 1, mh = 0 above word 0; two buffers swap
+between launches.  Score and result ride along; the last launch leaves
+the distances.
+
+The carry stream is the port's own layout, packed and pair-major: int32
+[B, ceil(N / 16)], word w of pair i holding the PH carries of chars 16w ..
+16w+15 in bits 0-15 and their MH carries in bits 16-31 (taxtk's is int8
+[N, B], ph | mh << 1 a char; pack_carries and unpack_carries convert).
 
 Left out, as in the short entry: the dense wire path (:608-639), the text
 chunk and its shape ladder (the kernel takes lengths at run time).
 
 `myers_chunked` is the wrapper: CUDA tensors launch the kernel (counted in
 `myers_chunked.launches`), CPU tensors run `myers_chunked_plain`, which is
-myers_ref.myers_block_step over the same pool and peq.
+myers_ref.myers_block_step over the same pool and peq.  The kernel runs
+two warps per pair, one pattern word a lane.
 """
 
 from __future__ import annotations
@@ -31,23 +37,71 @@ from . import cuda_build
 from .host import (
     ALPHA, WORD, _build_pool_wire, _dedupe_pool, _pool_indices, _pow2,
 )
-from .myers_ref import myers_block_step, peq_from_codes, unpack_columns
+from .myers_ref import (
+    M32, myers_block_step, peq_from_codes, to_i32, unpack_columns,
+)
 from .seqpool import DevicePoolCache
 
 CHUNK_KC = 64  # pattern words per launch (2048 bp), as in taxtk
 # the kernel is built for CHUNK_KC only; smaller blocks (block_words) are
 # for the plain version, whose CPU tests use taxtk's small test geometry
+CARRY_CHARS = 16  # chars per word of the packed carry stream
+
+
+def carry_words(N: int) -> int:
+    """Words per pair of a packed carry stream over N chars."""
+    return -(-max(N, 1) // CARRY_CHARS)
+
+
+def pack_carries(h: torch.Tensor) -> torch.Tensor:
+    """taxtk's carry stream int8 [N, B] (ph | mh << 1 a char) -> the
+    port's int32 [B, carry_words(N)]: word w of pair i holds the PH
+    carries of chars 16w .. 16w+15 in bits 0-15 and their MH carries in
+    bits 16-31; chars past N read as 0."""
+    N, B = h.shape
+    dev = h.device
+    x = torch.zeros((carry_words(N) * CARRY_CHARS, B), dtype=torch.int64,
+                    device=dev)
+    x[:N] = h.to(torch.int64)
+    x = x.reshape(-1, CARRY_CHARS, B)
+    w = (torch.ones(CARRY_CHARS, dtype=torch.int64, device=dev)
+         << torch.arange(CARRY_CHARS, device=dev))[None, :, None]
+    ph = ((x & 1) * w).sum(1)
+    mh = (((x >> 1) & 1) * w).sum(1)
+    return to_i32(ph | (mh << CARRY_CHARS)).T.contiguous()
+
+
+def unpack_carries(hw: torch.Tensor, N: int) -> torch.Tensor:
+    """The port's packed carry stream int32 [B, words] -> taxtk's int8
+    [N, B] (ph | mh << 1 a char), for N <= words * 16."""
+    j = torch.arange(N, device=hw.device)
+    word = (hw.to(torch.int64) & M32).index_select(1, j // CARRY_CHARS)
+    shift = j % CARRY_CHARS
+    ph = (word >> shift) & 1
+    mh = (word >> (shift + CARRY_CHARS)) & 1
+    return (ph | (mh << 1)).T.to(torch.int8).contiguous()
+
+
+def initial_carries(N, B, device):
+    """The carry stream above the first pattern word: ph = 1, mh = 0 at
+    each of N chars of B pairs."""
+    return torch.full((B, carry_words(N)), (1 << CARRY_CHARS) - 1,
+                      dtype=torch.int32, device=device)
 
 
 def myers_chunked_plain(pool, txt_col, peq, pat_idx, mword, mbit, nlen,
                         score, res, hin, bits, hout=None):
     """Plain version of one launch: myers_block_step on the texts of pool
     columns txt_col and the peq columns pat_idx of this block's words
-    peq [Kb, ALPHA, U].  Returns (score, res, hout); hout is written into
-    the given buffer, if any."""
-    text = unpack_columns(pool, txt_col, hin.shape[0], bits)
+    peq [Kb, ALPHA, U], over the stream's whole extent (hin's words x 16
+    chars), the carry streams converted at its boundary.  Returns (score,
+    res, hout); hout is written into the given buffer, if any."""
+    N = hin.shape[1] * CARRY_CHARS
+    text = unpack_columns(pool, txt_col, N, bits)
     score, res, h = myers_block_step(peq.index_select(2, pat_idx.long()),
-                                     text, mword, mbit, nlen, score, res, hin)
+                                     text, mword, mbit, nlen, score, res,
+                                     unpack_carries(hin, N))
+    h = pack_carries(h)
     return score, res, h if hout is None else hout.copy_(h)
 
 
@@ -56,7 +110,7 @@ def _lib():
     fn = lib.taxtk_myers_chunked
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, L, I, P, P, L] + [P] * 10 + [I, I, I, P]
+        fn.argtypes = [P, L, I, P, P, L] + [P] * 10 + [I] * 4 + [P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -65,11 +119,12 @@ def myers_chunked(pool, txt_col, peq, pat_idx, mword, mbit, nlen, score, res,
                   hin, bits, hout=None):
     """Kernel wrapper: one launch for the block peq [Kb, ALPHA, U] int32.
     pool int8 [rows, cap]; txt_col/pat_idx/mword/mbit/nlen/score/res int32
-    [B]; hin int8 [N, B] with N >= every nlen.  hout: the int8 [N, B]
-    buffer to write (allocated when None).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel or raise.  The kernel writes
-    hout for j < nlen only, which is all a later launch reads.  Returns
-    (score, res, hout)."""
+    [B]; hin the packed carry stream int32 [B, words] with words * 16 >=
+    every nlen.  hout: the buffer of hin's shape to write (allocated when
+    None).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise.  The kernel writes hout's words that hold a char j <
+    nlen only, which is all a later launch reads.  Returns (score, res,
+    hout)."""
     if pool.device.type == "cpu":
         return myers_chunked_plain(pool, txt_col, peq, pat_idx, mword, mbit,
                                    nlen, score, res, hin, bits, hout)
@@ -89,8 +144,8 @@ def myers_chunked(pool, txt_col, peq, pat_idx, mword, mbit, nlen, score, res,
             ("nlen", nlen, torch.int32, (B,)),
             ("score", score, torch.int32, (B,)),
             ("res", res, torch.int32, (B,)),
-            ("hin", hin, torch.int8, (hin.shape[0], B)),
-            ("hout", hout, torch.int8, hin.shape)):
+            ("hin", hin, torch.int32, (B, hin.shape[-1])),
+            ("hout", hout, torch.int32, hin.shape)):
         if (t.device != pool.device or t.dtype != dt or t.shape != shape
                 or not t.is_contiguous()):
             raise ValueError(f"myers_chunked: bad {name}")
@@ -107,7 +162,7 @@ def myers_chunked(pool, txt_col, peq, pat_idx, mword, mbit, nlen, score, res,
         peq.data_ptr(), peq.shape[2], pat_idx.data_ptr(), mword.data_ptr(),
         mbit.data_ptr(), nlen.data_ptr(), score.data_ptr(), res.data_ptr(),
         hin.data_ptr(), score_out.data_ptr(), res_out.data_ptr(),
-        hout.data_ptr(), B, Kb, bits, stream,
+        hout.data_ptr(), hin.shape[1], B, Kb, bits, stream,
     )
     cuda_build.check(rc, "myers_chunked launch")
     myers_chunked.launches += 1
@@ -177,9 +232,7 @@ def run_chunked(pool, txt_col, peq, pat_idx, mword, mbit, nlen, mlen, N, Kb,
     step = myers_chunked_plain if plain else myers_chunked
     score = mlen
     res = torch.maximum(mlen, nlen)
-    # ph = 1, mh = 0 above the first pattern word
-    hin = torch.ones((N, txt_col.shape[0]), dtype=torch.int8,
-                     device=pool.device)
+    hin = initial_carries(N, txt_col.shape[0], pool.device)
     spare = torch.empty_like(hin)
     for p in range(peq.shape[0] // Kb):
         score, res, hout = step(pool, txt_col, peq[p * Kb : (p + 1) * Kb],

@@ -5,6 +5,8 @@ must be exactly equal.  On the CPU the kernel wrapper runs its plain
 version (myers_ref.myers_block_step):
   * one launch: myers_block_step against one interpret-mode launch of
     taxtk's _make_kernel_chunked (score, res and the carry stream hout);
+  * the plain version on the port's packed carry stream against
+    myers_block_step on taxtk's, launch by launch, and the packing;
   * the entry: batched_edit_distance_long against
     batched_edit_distance_pallas_myers_long at taxtk's small test geometry,
     with and without a pool cache (hits, misses and bytes equal too);
@@ -26,7 +28,7 @@ from taxtk.ops import oracle
 from taxtk.ops.seqpool import DevicePoolCache as JaxPoolCache
 from taxtk_torch.engine import aligner as torch_aligner_mod
 from taxtk_torch.ops import myers_chunked, myers_cuda
-from taxtk_torch.ops.myers_ref import myers_block_step
+from taxtk_torch.ops.myers_ref import myers_block_step, unpack_columns
 from taxtk_torch.ops.seqpool import DevicePoolCache, reset_shared_pools
 
 
@@ -220,6 +222,95 @@ def test_oversized_round_route_matches_taxtk(monkeypatch, systolic_max):
     assert calls[routed] == 1 and sum(calls.values()) == 1, calls
 
 
+def _old_layout_chain(args):
+    """The entry's launches as taxtk chains them, on its int8 [N, B] carry
+    stream: myers_block_step block by block.  Yields each block's (score,
+    res, hout)."""
+    pool, txt_col, peq, pat_idx, mword, mbit, nlen, mlen, N, Kb, bits = args
+    text = unpack_columns(pool, txt_col, N, bits)
+    score, res = mlen, torch.maximum(mlen, nlen)
+    h = torch.ones((N, txt_col.shape[0]), dtype=torch.int8)
+    for p in range(peq.shape[0] // Kb):
+        score, res, h = myers_block_step(
+            peq[p * Kb : (p + 1) * Kb].index_select(2, pat_idx.long()), text,
+            mword - p * Kb, mbit, nlen, score, res, h)
+        yield score, res, h
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_plain_on_packed_stream_matches_block_step(bits):
+    """myers_chunked_plain on the port's packed pair-major carry stream
+    equals myers_block_step on taxtk's int8 [N, B] stream, launch by
+    launch (score, res and every carry), for 2- and 4-bit pools; sides of
+    0, 1, 15, 16 and 17 chars, and texts (the longer sides) at and across
+    stream words' edges (31, 33, 63-65, 128, 129 chars)."""
+    rng = np.random.default_rng(70 + bits)
+    ms = [63, 64, 65, 128, 129, 1, 0, 90, 200, 150, 100, 33]
+    ns = [0, 1, 15, 16, 17, 31, 33, 120, 250, 48, 160, 249]
+    ac, bc, al, bl = _batch(rng, ms, ns, 4 if bits == 2 else 5)
+    args, post = myers_chunked.chunked_inputs(ac, bc, al, bl, "cpu",
+                                              block_words=2)
+    assert args[-1] == bits
+    pool, txt_col, peq, pat_idx, mword, mbit, nlen, mlen, N, Kb, _ = args
+    score, res = mlen, torch.maximum(mlen, nlen)
+    hin = myers_chunked.initial_carries(N, len(ms), "cpu")
+    assert hin.shape == (len(ms), myers_chunked.carry_words(N))
+    blocks = 0
+    for p, want in enumerate(_old_layout_chain(args)):
+        score, res, hin = myers_chunked.myers_chunked_plain(
+            pool, txt_col, peq[p * Kb : (p + 1) * Kb], pat_idx,
+            mword - p * Kb, mbit, nlen, score, res, hin, bits)
+        assert torch.equal(score, want[0]) and torch.equal(res, want[1])
+        assert torch.equal(myers_chunked.unpack_carries(hin, N), want[2])
+        blocks += 1
+    assert blocks == 4  # 200 bp: 7 words in blocks of 2
+    np.testing.assert_array_equal(post(res.numpy()), _oracle(ac, bc, al, bl))
+
+
+@pytest.mark.parametrize("N", [1, 15, 16, 17, 100])
+def test_carry_stream_packing_round_trips(N):
+    """pack_carries / unpack_carries: the PH carry of char 16w + r at bit r
+    of word w, its MH carry at bit 16 + r; the initial stream is ph = 1,
+    mh = 0 at every char."""
+    rng = np.random.default_rng(N)
+    h = torch.from_numpy(rng.integers(0, 4, (N, 3)).astype(np.int8))
+    packed = myers_chunked.pack_carries(h)
+    assert packed.dtype == torch.int32 and packed.shape == (3, -(-N // 16))
+    assert torch.equal(myers_chunked.unpack_carries(packed, N), h)
+    words = packed.numpy().view(np.uint32)
+    for i in range(3):
+        for j in range(N):
+            w, r = divmod(j, 16)
+            assert (words[i, w] >> r) & 1 == h[j, i] & 1
+            assert (words[i, w] >> (16 + r)) & 1 == (h[j, i] >> 1) & 1
+    ones = myers_chunked.unpack_carries(
+        myers_chunked.initial_carries(N, 3, "cpu"), N)
+    assert torch.equal(ones, torch.ones((N, 3), dtype=torch.int8))
+
+
+def _card_launches(args):
+    """Every launch of the entry on the card, each held against the plain
+    version on the same inputs (score, res and the carries at every char j
+    < nlen, all a later launch reads); the next launch takes the kernel's
+    outputs.  Returns the last res."""
+    pool, txt_col, peq, pat_idx, mword, mbit, nlen, mlen, N, Kb, bits = args
+    score, res = mlen, torch.maximum(mlen, nlen)
+    hin = myers_chunked.initial_carries(N, txt_col.shape[0], pool.device)
+    live = torch.arange(N, device=pool.device)[:, None] < nlen[None, :]
+    for p in range(peq.shape[0] // Kb):
+        step = (pool, txt_col, peq[p * Kb : (p + 1) * Kb], pat_idx,
+                mword - p * Kb, mbit, nlen, score, res, hin, bits)
+        k = myers_chunked.myers_chunked(*step)
+        p_out = myers_chunked.myers_chunked_plain(*step)
+        assert torch.equal(k[0], p_out[0]), f"score, block {p}"
+        assert torch.equal(k[1], p_out[1]), f"res, block {p}"
+        assert torch.equal(myers_chunked.unpack_carries(k[2], N)[live],
+                           myers_chunked.unpack_carries(p_out[2], N)[live]), (
+            f"carries, block {p}")
+        score, res, hin = k
+    return res
+
+
 @pytest.mark.cuda
 def test_chunked_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -228,12 +319,16 @@ def test_chunked_kernel_matches_plain_on_card():
     ms = [int(x) for x in rng.integers(2049, 4500, 40)] + [0, 1, 2048, 2049]
     ns = [int(x) for x in rng.integers(1, 5000, len(ms))]
     ac, bc, al, bl = _batch(rng, ms, ns, 5)
+    # one launch per 64-word block of the longest pattern (the shorter
+    # side): 4025 bp here, two blocks
+    blocks = -(-int(np.minimum(al, bl).max()) // (32 * 64))
+    assert blocks == 2
     for cache in (None, DevicePoolCache("cuda")):
         args, post = myers_chunked.chunked_inputs(
             ac, bc, al, bl, torch.device("cuda"), pool_cache=cache)
         n = myers_chunked.myers_chunked.launches
         got = myers_chunked.run_chunked(*args)
-        assert myers_chunked.myers_chunked.launches == n + 3
+        assert myers_chunked.myers_chunked.launches == n + blocks
         np.testing.assert_array_equal(post(got.cpu().numpy()),
                                       _oracle(ac, bc, al, bl))
         # the first launch against the plain version, hout where read
@@ -241,10 +336,42 @@ def test_chunked_kernel_matches_plain_on_card():
             args)
         step = (pool, txt_col, peq[:Kb], pat_idx, mword, mbit, nlen, mlen,
                 torch.maximum(mlen, nlen),
-                torch.ones((N, len(ms)), dtype=torch.int8, device="cuda"),
-                bits)
+                myers_chunked.initial_carries(N, len(ms), "cuda"), bits)
         k = myers_chunked.myers_chunked(*step)
         p = myers_chunked.myers_chunked_plain(*step)
         assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
         live = torch.arange(N, device="cuda")[:, None] < nlen[None, :]
-        assert torch.equal(k[2][live], p[2][live])
+        assert torch.equal(myers_chunked.unpack_carries(k[2], N)[live],
+                           myers_chunked.unpack_carries(p[2], N)[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alphabet", [4, 5])
+def test_chunked_kernel_edges_on_card(alphabet):
+    """Every launch against the plain version, on both pool layouts: texts
+    shorter than a warp's 31-step ramp and the 64-step lag between a
+    pair's warps (2 to 64 chars, 15, 16 and 17 at a stream word's edge),
+    an empty side, pattern ends in word 0, in words 31 and 32 (the edge
+    between the pair's warps), in word 63 (2017 and 2048 bp) and in the
+    next block (2049 to 4096 bp), 4-bit N codes (alphabet 5), B = 19 (no
+    multiple of a block's two pairs) and the aligner's trailing 1 x 1
+    dummy rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.default_rng(80 + alphabet)
+    # (pattern, text) lengths; the entry takes the shorter side as the
+    # pattern.  Short texts, then pattern ends in words 0, 31, 32 and 63,
+    # in the next block, a related pair, and two dummy rows last
+    ms = [10, 16, 17, 40, 64, 0, 1, 20, 1000, 1050, 2017, 2048, 2049, 2080,
+          4096, 3000, 2200, 1, 1]
+    ns = [15, 16, 5, 63, 64, 30, 2, 3000, 1100, 1300, 2500, 2300, 2049,
+          4000, 4100, 3100, 5000, 1, 1]
+    ac, bc, al, bl = _batch(rng, ms, ns, alphabet)
+    bc[16, :2200] = ac[16, :2200]  # a related pair: carries that vary
+    for cache in (None, DevicePoolCache("cuda")):
+        args, post = myers_chunked.chunked_inputs(
+            ac, bc, al, bl, torch.device("cuda"), pool_cache=cache)
+        assert args[-1] == (2 if alphabet == 4 else 4)
+        res = _card_launches(args)
+        np.testing.assert_array_equal(post(res.cpu().numpy()),
+                                      _oracle(ac, bc, al, bl))
