@@ -65,7 +65,16 @@ Phases, one line each:
            the GFF3 through the port's binner;
   protein  v5 and v6 each at its largest launch, the engine's own shape,
            against the plain version and the host C++ NW, timed at each
-           nw.
+           nw;
+  pipeline taxtk-binning (python -m taxtk_torch.cli.pipeline, in this
+           process, on the card by default) with --alignments on the DNA
+           engine's 300-contig workload and with --protein
+           --no-orf-calling on the protein engine's 2000 ORFs, each laid
+           out as a refpack; every output file byte-identical to
+           run_binning_workflow's with the host C++ aligner (DNA) or the
+           plain protein version, myers_short, myers_systolic and
+           protein_wavefront launched; wall time, rate and the seconds of
+           the engine, binner and summaries stages.
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -966,6 +975,20 @@ def _check_chunked_engine(calls, recs, int_rate, reps, record):
     print(f"kernels: chunked {label}: {json.dumps(rec)}", flush=True)
 
 
+def kernel_wrappers():
+    """Each kernel's wrapper by name; `launches` on a wrapper counts its
+    kernel's launches."""
+    from taxtk_torch.ops import (dna_wavefront, myers_chunked, myers_cuda,
+                                 myers_systolic, protein_cuda)
+
+    return {"myers_short": myers_cuda.myers_short,
+            "myers_systolic": myers_systolic.myers_systolic,
+            "myers_chunked": myers_chunked.myers_chunked,
+            "dna_wavefront": dna_wavefront.dna_wavefront,
+            "protein_wavefront": protein_cuda.protein_wavefront,
+            "protein_swar": protein_cuda.protein_swar}
+
+
 def phase_engine(int_rate, n_contigs=300):
     """The port's main paths on make_workload: nucleotide taxator with
     myers-cuda, with --dna-backend native, with wavefront-cuda, and with
@@ -987,15 +1010,12 @@ def phase_engine(int_rate, n_contigs=300):
     from taxtk_torch.ops import (dna_wavefront, myers_chunked, myers_cuda,
                                  myers_systolic)
 
-    wrappers = {"myers_short": myers_cuda.myers_short,
-                "myers_systolic": myers_systolic.myers_systolic,
-                "myers_chunked": myers_chunked.myers_chunked,
-                "dna_wavefront": dna_wavefront.dna_wavefront}
+    wrappers = kernel_wrappers()
     launches = {}
 
     def counted(run, names):
-        """run() with the named kernels' counts set to 0 just before; all
-        four counts read just after."""
+        """run() with the named kernels' counts set to 0 just before; every
+        count read just after."""
         for w in wrappers.values():
             w.launches = 0
         value = run()
@@ -1438,6 +1458,157 @@ def phase_protein_engine(n_orfs=2000):
                       for label, (name, _) in PROTEIN_CAPTURES.items()}
 
 
+@contextlib.contextmanager
+def stage_seconds(seconds):
+    """Wall seconds of the binning workflow's stages, summed into seconds
+    by name: the RPA engine's run (which streams its GFF3 into `sort`),
+    the binner and the summaries; the rest of a run (the gzip alignments
+    archive, the taxonomy, .fai files, sort's finish) is its wall time
+    less these."""
+    from taxtk_torch.engine.executor import RpaEngine
+    from taxtk_torch.pipeline import workflows
+
+    def timed_stage(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seconds[name] = (seconds.get(name, 0.0)
+                                 + time.perf_counter() - t)
+        return run
+
+    with mock.patch.object(RpaEngine, "run",
+                           timed_stage("engine", RpaEngine.run)), \
+            mock.patch.object(workflows, "run_binner",
+                              timed_stage("binner", workflows.run_binner)), \
+            mock.patch.object(workflows, "binning_to_summary",
+                              timed_stage("summaries",
+                                          workflows.binning_to_summary)):
+        yield seconds
+
+
+def outdir_bytes(outdir):
+    """Every file the workflow wrote into outdir, by name, with its bytes
+    (the gzip alignments archive decompressed: gzip stamps its header with
+    the time)."""
+    import gzip
+
+    found = {}
+    for name in sorted(os.listdir(outdir)):
+        opener = gzip.open if name.endswith(".gz") else open
+        with opener(os.path.join(outdir, name), "rb") as f:
+            found[name] = f.read()
+    return found
+
+
+def phase_pipeline(n_contigs=300, n_orfs=2000):
+    """taxtk-binning, the port's pipeline CLI (taxtk_torch.cli.pipeline.main
+    in this process, on the card by default), with --alignments on the DNA
+    engine phase's workload and with --protein --no-orf-calling on the
+    protein engine phase's, each laid out as a refpack.  The reference
+    bytes: run_binning_workflow on the same refpack with the host C++
+    aligner (DNA) or the plain protein version (protein).  Every output
+    file must be byte-identical, and the CLI run must launch the kernels
+    of its path (counts set to 0 just before it, read just after)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    from bench_e2e import make_workload, make_workload_protein
+
+    from taxtk_torch.cli import pipeline
+    from taxtk_torch.engine.aligner import BatchAligner
+    from taxtk_torch.ops.seqpool import reset_shared_pools
+    from taxtk_torch.pipeline.workflows import run_binning_workflow
+
+    wrappers = kernel_wrappers()
+
+    def counted(run):
+        """(run(), its wall seconds, its stage seconds, every kernel's
+        launches in it), on a cold shared pool cache."""
+        reset_shared_pools()
+        for w in wrappers.values():
+            w.launches = 0
+        stages = {}
+        with stage_seconds(stages):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        return value, secs, stages, {k: w.launches
+                                     for k, w in wrappers.items()}
+
+    def cli(argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = pipeline.main(argv)
+        if rc != 0:
+            fail(f"taxtk-binning {' '.join(argv)} exited {rc}: "
+                 f"{err.getvalue()}")
+        return out.getvalue()
+
+    rec = {}
+    for label, make, n, protein, kernels, aligner in (
+            ("dna", make_workload, n_contigs, False,
+             ("myers_short", "myers_systolic"),
+             lambda: BatchAligner("dna", dna_backend="native",
+                                  device="cuda")),
+            ("protein", make_workload_protein, n_orfs, True,
+             ("protein_wavefront",),
+             lambda: BatchAligner("protein", protein_backend="wavefront",
+                                  device="cuda"))):
+        with tempfile.TemporaryDirectory() as d:
+            kw = dict(min_len=1000, max_len=20000) if not protein else {}
+            aln, qfa, _, _, _, total = make(d, n, seed=7, **kw)
+            os.symlink("tax", os.path.join(d, "ncbi-taxonomy"))
+            ref_out, cli_out = os.path.join(d, "ref"), os.path.join(d, "cli")
+            with contextlib.redirect_stderr(io.StringIO()):
+                _, ref_s, ref_stages, ref_counts = counted(
+                    lambda: run_binning_workflow(d, qfa, ref_out,
+                                                 alignments_file=aln,
+                                                 protein=protein,
+                                                 aligner=aligner()))
+            if any(ref_counts.values()):
+                fail(f"the {label} pipeline's reference run launched a "
+                     f"kernel: {ref_counts}")
+            argv = [d, qfa, cli_out, "--alignments", aln]
+            if protein:
+                argv += ["--protein", "--no-orf-calling"]
+            stdout, secs, stages, counts = counted(lambda: cli(argv))
+            want, got = outdir_bytes(ref_out), outdir_bytes(cli_out)
+        if sorted(got) != sorted(want):
+            fail(f"the {label} pipeline wrote {sorted(got)}, the reference "
+                 f"{sorted(want)}")
+        for name in want:
+            if got[name] != want[name]:
+                fail(f"the {label} pipeline's {name} differs from the "
+                     "reference run's")
+        for name in kernels:
+            if counts[name] <= 0:
+                fail(f"the {label} pipeline never launched {name}")
+        gff3_lines = got["sample.gff3"].count(b"\n")
+        if (not got["sample.gff3"].startswith(b"##gff-version 3\n")
+                or gff3_lines < (n if not protein else n // 2)):
+            fail(f"the {label} pipeline's GFF3 has {gff3_lines} lines")
+        binning_lines = sum(
+            1 for ln in got["sample.binning"].splitlines()
+            if ln and not ln.startswith((b"#", b"@")))
+        if not stdout.startswith(f"Results are in '{cli_out}/'.") or \
+                binning_lines == 0:
+            fail(f"the {label} pipeline printed {stdout[:200]!r} and binned "
+                 f"{binning_lines} rows")
+        rate = total / 1e6 / (secs / 3600)
+        rec[label] = {
+            "queries": n, "query_" + ("aa" if protein else "bp"): total,
+            "wall_s": secs, ("maa_per_h" if protein else "mbp_per_h"): rate,
+            "stages_s": dict(stages, rest=secs - sum(stages.values())),
+            "launches": counts, "gff3_lines": gff3_lines,
+            "binning_lines": binning_lines, "files_identical": len(want),
+            "reference_s": ref_s, "reference_stages_s": ref_stages}
+    print(f"pipeline: {json.dumps(rec)}", flush=True)
+
+
 KERNELS = (
     ("myers_short", "taxtk_torch/csrc/myers_short.cu",
      "taxtk/ops/pallas_myers.py:121"),
@@ -1494,6 +1665,7 @@ def main() -> int:
         _check_protein(kept["host"], f"engine {B}x{L}", int_rate, 5, prot,
                        names=(name,), layouts=("pool cache",), first=True,
                        by_nw=True)
+    phase_pipeline()
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "taxtk"))
     if bad:
