@@ -74,7 +74,21 @@ Phases, one line each:
            run_binning_workflow's with the host C++ aligner (DNA) or the
            plain protein version, myers_short, myers_systolic and
            protein_wavefront launched; wall time, rate and the seconds of
-           the engine, binner and summaries stages.
+           the engine, binner and summaries stages;
+  mesh     the dp x tp mesh: taxator --mesh 1x1 on the DNA engine's
+           workload (myers-cuda) and, with -l, on the protein engine's,
+           GFF3 (and log) byte-identical to those phases' runs, with
+           engine and merge-stage seconds and launches per row; a 2x2
+           grid over cuda:0 named four times (tp = 2, taxator's own entry
+           with its grid so made), the same GFF3, per-cell pool traffic
+           and launches, and the pass-0 merge against the host's
+           reductions on every live task of one macro-batch; dryrun_step
+           on [cuda:0] * 2 at tp = 2 against its run with the plain
+           wavefront on the card; two gloo processes (this script with
+           --mesh-worker) classifying their host shards with myers-cuda,
+           merge_gff3_parts of their parts equal to the single run's; and,
+           only with more than one card, --mesh kx1 and 1xk over the
+           cards.
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -1001,8 +1015,8 @@ def phase_engine(int_rate, n_contigs=300):
     the spin, prints each with its bound, and keeps the host inputs of
     every entry call; the wavefront-cuda run times each row-6 launch and
     keeps the inputs of its largest (LaunchCapture).
-    Returns each kernel's launch count from its path's run, and the four
-    captures (row 3's with its launch records)."""
+    Returns each kernel's launch count from its path's run, the four
+    captures (row 3's with its launch records) and native's GFF3."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload
 
@@ -1118,7 +1132,7 @@ def phase_engine(int_rate, n_contigs=300):
     rec["wavefront-cuda"]["dna_wavefront_ms_sum"] = sum(w_ms)
     print(f"engine: {json.dumps(rec)}", flush=True)
     return (launches, capture.kept, wave_cap.kept, short_cap.kept,
-            (chunk_cap.kept, c_recs))
+            (chunk_cap.kept, c_recs), gff_native)
 
 
 def protein_bound(al, bl, int_rate, packed):
@@ -1369,7 +1383,8 @@ def phase_protein_engine(n_orfs=2000):
     The first run times each row-4 launch with CUDA events and keeps the
     inputs of its largest (LaunchCapture), the third does so for row 5.
     Returns the protein kernels' launch counts (v5 from the first run, v6
-    from the third) and the two captures, by kernel."""
+    from the third), the two captures, by kernel, and the first run's GFF3
+    and -l log."""
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload_protein
 
@@ -1455,7 +1470,8 @@ def phase_protein_engine(n_orfs=2000):
         rec[label][f"{name}_ms_sum"] = sum(ms[label])
     print(f"protein engine: {json.dumps(rec)}", flush=True)
     return launches, {name: caps[label].kept
-                      for label, (name, _) in PROTEIN_CAPTURES.items()}
+                      for label, (name, _) in PROTEIN_CAPTURES.items()}, (
+                          gff0, log0)
 
 
 @contextlib.contextmanager
@@ -1609,6 +1625,337 @@ def phase_pipeline(n_contigs=300, n_orfs=2000):
     print(f"pipeline: {json.dumps(rec)}", flush=True)
 
 
+def _resolved_sets(aln, mapping, tax):
+    """The record sets taxator makes of an alignments file (its parser,
+    taxonomy resolution and grouping, CLI defaults)."""
+    from taxtk_torch.cli.taxator import _resolved_records
+    from taxtk_torch.engine.recordsets import iter_record_sets
+    from taxtk_torch.formats.mapping import load_seqid_taxid_mapping
+
+    with open(aln) as f:
+        return list(iter_record_sets(
+            _resolved_records(f, load_seqid_taxid_mapping(mapping), tax),
+            True, False))
+
+
+@contextlib.contextmanager
+def capture_engines():
+    """Every RpaEngine run inside appends its engine to the list yielded,
+    so that its metrics (stage seconds, unrounded) and stores can be read
+    after the run."""
+    from taxtk_torch.engine.executor import RpaEngine
+
+    engines = []
+    real = RpaEngine.run
+
+    def run(self, *args, **kwargs):
+        engines.append(self)
+        return real(self, *args, **kwargs)
+
+    with mock.patch.object(RpaEngine, "run", run):
+        yield engines
+
+
+@contextlib.contextmanager
+def cell_launches(per_cell):
+    """Each kernel's launches per grid cell, summed into per_cell["r,c"]:
+    the wrappers' counts read around each cell's dispatch (cells are
+    recognised by their pool caches, one per cell on a grid that names a
+    device more than once)."""
+    from taxtk_torch.engine.aligner import BatchAligner
+
+    wrappers = kernel_wrappers()
+    real = BatchAligner._dispatch_set
+
+    def dispatch_set(self, pairs, work, dev_long, results, finishers,
+                     device, pool_cache):
+        before = {k: w.launches for k, w in wrappers.items()}
+        out = real(self, pairs, work, dev_long, results, finishers, device,
+                   pool_cache)
+        cell = next((f"{r},{c}" for (r, c), p in self._pool_caches.items()
+                     if p is pool_cache), "single")
+        acc = per_cell.setdefault(cell, {})
+        for k, w in wrappers.items():
+            if w.launches > before[k]:
+                acc[k] = acc.get(k, 0) + w.launches - before[k]
+        return out
+
+    with mock.patch.object(BatchAligner, "_dispatch_set", dispatch_set):
+        yield per_cell
+
+
+def _merge_matches_host(engine, rsets):
+    """The pass-0 merge of one macro-batch against the host's reductions
+    (the best record by dist asc, sim desc, score desc, index asc; the LCA
+    of the co-optimal and of all nodes; the max support) on every live
+    task; returns the number of live tasks."""
+    from taxtk_torch.engine.executor import SegmentCache, drive_sync
+    from taxtk_torch.models.rpa import RpaTask
+
+    tax = engine.tax
+    tasks = [RpaTask(tax, rs, engine.exclude_factor, engine.toppercent)
+             for rs in rsets[:engine.macro_batch]]
+    caches = [SegmentCache(t, engine.query_store, engine.db_store,
+                           engine.protein) for t in tasks]
+    pair_caches = [dict() for _ in tasks]
+    drive_sync(engine._align_round(tasks, caches, pair_caches,
+                                   [t.prepare() for t in tasks]))
+    merged = engine._pass0_collective_merge(tasks, pair_caches)
+    live = 0
+    for ti, t in enumerate(tasks):
+        if t.result is not None:
+            continue
+        live += 1
+        dists, sims = t.pass0_table(pair_caches[ti])
+        best = min(range(t.n), key=lambda i: (
+            dists[i], -sims[i], -float(t.records[i].score), i))
+        co = [t.records[i].reference_node for i in range(t.n)
+              if dists[i] == dists[best] and sims[i] == sims[best]
+              and t.records[i].score == t.records[best].score]
+        m = merged[ti]
+        got = (int(m["best_slot"]), float(m["best_dist"]),
+               float(m["best_sim"]), int(m["rtax"]),
+               int(m["lca_allnodes"]), int(m["support"]))
+        want = (best, float(dists[best]), float(sims[best]),
+                tax.lca_reduce(co),
+                tax.lca_reduce([r.reference_node for r in t.records]),
+                max(int(s) for s in sims))
+        if got != want:
+            fail(f"pass-0 merge of task {ti} ({t.qrseqname}): {got}, the "
+                 f"host's {want}")
+    if live == 0 or len(merged) != live:
+        fail(f"the merge covered {len(merged)} of {live} live tasks")
+    return live
+
+
+def mesh_worker(workdir):
+    """One process of the mesh phase's multi-host run (chip_smoke.py
+    --mesh-worker DIR, TAXTK_COORDINATOR / TAXTK_NUM_PROCESSES /
+    TAXTK_PROCESS_ID set): joins the gloo group, classifies its host shard
+    of DIR's workload with myers-cuda, writes DIR/part.<rank>.gff3 and
+    prints its launches and engine seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from taxtk_torch.constants import DEFAULT_RANKS
+    from taxtk_torch.engine.executor import RpaEngine
+    from taxtk_torch.parallel.distributed import host_shard, initialize
+    from taxtk_torch.refpack.store import IndexedFastaStore, InMemoryFastaStore
+    from taxtk_torch.taxonomy.flat import load_taxonomy_from_environment
+
+    pid = initialize()
+    n = int(os.environ["TAXTK_NUM_PROCESSES"])
+    if (dist.get_rank(), dist.get_world_size()) != (pid, n):
+        fail(f"rank {dist.get_rank()} of {dist.get_world_size()}")
+    os.environ["TAXATORTK_TAXONOMY_NCBI"] = os.path.join(workdir, "tax")
+    ranks = list(DEFAULT_RANKS)
+    tax = load_taxonomy_from_environment(ranks).prune_to_marked_ranks(ranks)
+    rsets = _resolved_sets(os.path.join(workdir, "sample.alignments"),
+                           os.path.join(workdir, "mapping.tax"), tax)
+    rfa = os.path.join(workdir, "refdata.fna")
+    engine = RpaEngine(tax, InMemoryFastaStore(os.path.join(workdir,
+                                                            "query.fna")),
+                       IndexedFastaStore(rfa, rfa + ".fai"), device="cuda")
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    engine.run(host_shard(iter(rsets), pid, n), out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "taxtk"))
+    if bad:
+        fail(f"the worker imported {bad[:5]}")
+    with open(os.path.join(workdir, f"part.{pid}.gff3"), "w") as f:
+        f.write(out.getvalue())
+    print("mesh worker: " + json.dumps(dict(
+        rank=pid, engine_s=secs, record_sets=engine.metrics.record_sets,
+        launches={k: w.launches for k, w in wrappers.items()})), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gloo_run(workdir, nprocs=2):
+    """nprocs mesh workers on the card; returns their JSON records.  Every
+    worker is waited for, and killed if it outlives its time."""
+    port = _free_port()
+    procs = []
+    try:
+        for pid in range(nprocs):
+            env = dict(os.environ, TAXTK_COORDINATOR=f"127.0.0.1:{port}",
+                       TAXTK_NUM_PROCESSES=str(nprocs),
+                       TAXTK_PROCESS_ID=str(pid))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                 workdir], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        recs = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                fail(f"mesh worker exited {p.returncode}: {err[-3000:]}")
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("mesh worker: ")]
+            recs.append(json.loads(line[-1].split(": ", 1)[1]))
+        return recs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _in_turns(run, want, label, kernels):
+    """run(extra argv) -> (output, record), four times in turns: single
+    device, --mesh 1x1, --mesh 1x1, single device.  Every output must
+    equal `want` and every run launch `kernels`.  Returns the records of
+    the single-device runs and of the 1x1 runs."""
+    recs = {"single": [], "1x1": []}
+    for kind in ("single", "1x1", "1x1", "single"):
+        out, r = run(["--mesh", "1x1"] if kind == "1x1" else [])
+        if out != want:
+            fail(f"{label} {kind} output differs from the engine phase's")
+        for name in kernels:
+            if not r["launches"].get(name):
+                fail(f"{label} {kind} never launched {name}")
+        recs[kind].append(r)
+    return recs["single"], recs["1x1"]
+
+
+def phase_mesh(dna_gff3, protein_out, n_contigs=300, n_orfs=2000):
+    """The dp x tp mesh on the card (see the module docstring), held
+    against the engine phases' DNA GFF3 and protein (GFF3, -l log)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    from bench_e2e import make_workload, make_workload_protein
+
+    from taxtk_torch.cli import taxator
+    from taxtk_torch.ops import dna_align
+    from taxtk_torch.parallel import distributed, mesh
+
+    wrappers = kernel_wrappers()
+    rec = {}
+
+    def counted_cli(argv, aln):
+        """run_cli with every kernel's count set to 0 just before and read
+        just after, and the run's engine."""
+        for w in wrappers.values():
+            w.launches = 0
+        with capture_engines() as engines:
+            gff, secs, stats = run_cli(argv, aln)
+        counts = {k: w.launches for k, w in wrappers.items()
+                  if w.launches}
+        return gff, dict(engine_s=secs, merge_s=engines[-1].metrics
+                         .stage_seconds.get("merge"),
+                         stage_s=engines[-1].metrics.stage_seconds,
+                         launches=counts, aligner=stats), engines[-1]
+
+    cards = [torch.device("cuda", 0)]
+    with tempfile.TemporaryDirectory() as d:
+        aln, qfa, rfa, mapping, tax_dir, _ = make_workload(
+            d, n_contigs, seed=7, min_len=1000, max_len=20000)
+        os.environ["TAXATORTK_TAXONOMY_NCBI"] = tax_dir
+        argv = ["-g", mapping, "-q", qfa, "-f", rfa, "-i", rfa + ".fai"]
+        # 1. taxator --mesh 1x1 on the card, as a user runs it, in turns
+        # with the single-device run (single, 1x1, 1x1, single)
+        rec["dna_single"], rec["dna_1x1"] = _in_turns(
+            lambda extra: counted_cli(argv + extra, aln)[:2],
+            dna_gff3, "DNA", ("myers_short", "myers_systolic"))
+        # 2. a 2x2 grid that names cuda:0 four times, through taxator's
+        # own entry (its --mesh takes distinct cards only)
+        grid = mesh.make_mesh(4, tp=2, devices=cards * 4)
+        per_cell = {}
+        with mock.patch.object(taxator, "_make_mesh",
+                               lambda spec, device: grid), \
+                cell_launches(per_cell):
+            gff, rec["dna_2x2"], engine = counted_cli(
+                argv + ["--mesh", "2x2"], aln)
+        if gff != dna_gff3:
+            fail("the 2x2 grid's GFF3 differs from the engine phase's")
+        rec["dna_2x2"]["cell_launches"] = per_cell
+        if len([c for c in per_cell if c != "single"]) < 2:
+            fail(f"the 2x2 grid ran on cells {sorted(per_cell)}")
+        rec["dna_2x2"]["merge_live_tasks"] = _merge_matches_host(
+            engine, _resolved_sets(aln, mapping, engine.tax))
+        # 3. dryrun_step on [cuda:0] * 2 at tp = 2, against the same step
+        # with the plain wavefront on the card
+        pair = mesh.make_mesh(2, tp=2, devices=cards * 2)
+        wrappers["dna_wavefront"].launches = 0
+        t = time.perf_counter()
+        got = mesh.dryrun_step(pair, engine.tax.path, B=256, S=16, L=256)
+        dry_s = time.perf_counter() - t
+        dry_launches = wrappers["dna_wavefront"].launches
+        with mock.patch.object(mesh, "batched_edit_distance_wavefront",
+                               dna_align.batched_edit_distance):
+            want = mesh.dryrun_step(pair, engine.tax.path, B=256, S=16,
+                                    L=256)
+        for g, w in zip(got[:3], want[:3]):
+            if not np.array_equal(g, w):
+                fail("dryrun_step differs from its plain version")
+        if dry_launches != 2:
+            fail(f"dryrun_step launched dna_wavefront {dry_launches} times")
+        rec["dryrun"] = dict(shape=[256, 16, 256], seconds=dry_s,
+                             launches=dry_launches)
+        # 4. two gloo processes on the card, one host shard each
+        recs = _gloo_run(d)
+        parts = [os.path.join(d, f"part.{p}.gff3") for p in range(2)]
+        merged, single = (os.path.join(d, x) for x in ("merged.gff3",
+                                                       "single.gff3"))
+        distributed.merge_gff3_parts(parts, merged)
+        with open(single + ".in", "w") as f:
+            f.write(dna_gff3)
+        distributed.merge_gff3_parts([single + ".in"], single)
+        with open(merged, "rb") as a, open(single, "rb") as b:
+            if a.read() != b.read():
+                fail("the two processes' merged GFF3 differs from the "
+                     "single run's")
+        for r in recs:
+            if not r["launches"]["myers_short"]:
+                fail(f"mesh worker {r['rank']} never launched myers_short")
+        rec["gloo_2"] = recs
+        # 5. real cards, where there are several
+        k = torch.cuda.device_count()
+        if k > 1:
+            for spec in (f"{k}x1", f"1x{k}"):
+                gff, rec[f"dna_{spec}"], _ = counted_cli(
+                    argv + ["--mesh", spec], aln)
+                if gff != dna_gff3:
+                    fail(f"--mesh {spec} GFF3 differs from the engine "
+                         "phase's")
+        else:
+            print("mesh: --mesh kx1 and 1xk over real cards not run: "
+                  f"{k} card visible", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        aln, qfa, rfa, mapping, tax_dir, _ = make_workload_protein(d, n_orfs)
+        os.environ["TAXATORTK_TAXONOMY_NCBI"] = tax_dir
+        logs = iter(range(4))
+
+        def protein_run(extra):
+            log = os.path.join(d, f"mesh{next(logs)}.log")  # -l appends
+            gff, run, _ = counted_cli(
+                ["-b", "protein", "-g", mapping, "-q", qfa, "-f", rfa, "-i",
+                 rfa + ".fai", "-l", log] + extra, aln)
+            with open(log) as f:
+                return (gff, f.read()), run
+
+        rec["protein_single"], rec["protein_1x1"] = _in_turns(
+            protein_run, protein_out, "protein -l",
+            ("protein_wavefront",))
+    print(f"mesh: {json.dumps(rec)}", flush=True)
+
+
 KERNELS = (
     ("myers_short", "taxtk_torch/csrc/myers_short.cu",
      "taxtk/ops/pallas_myers.py:121"),
@@ -1643,7 +1990,7 @@ def main() -> int:
     phase_build()
     short, long_, chunked, wave = phase_kernels(int_rate)
     (launches, systolic_launch, wave_launch, short_launches,
-     chunked_launches) = phase_engine(int_rate)
+     chunked_launches, dna_gff3) = phase_engine(int_rate)
     _check_chunked_engine(*chunked_launches, int_rate, 5, chunked)
     _check_short_engine(short_launches, int_rate, 5, short)
     _check_short_launches(short_launches, 5)
@@ -1655,7 +2002,7 @@ def main() -> int:
                      wave, first=True)
     prot = phase_protein(int_rate)
     phase_golden()
-    prot_launches, prot_kept = phase_protein_engine()
+    prot_launches, prot_kept, protein_out = phase_protein_engine()
     launches.update(prot_launches)
     # rows 4 and 5 at the engine's own shapes, their main shapes: the
     # inputs of the largest launch of the wavefront-cuda protein run (row
@@ -1666,6 +2013,7 @@ def main() -> int:
                        names=(name,), layouts=("pool cache",), first=True,
                        by_nw=True)
     phase_pipeline()
+    phase_mesh(dna_gff3, protein_out)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "taxtk"))
     if bad:
@@ -1692,4 +2040,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2]))
     sys.exit(main())

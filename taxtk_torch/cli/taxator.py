@@ -9,8 +9,14 @@ wavefront kernel) and wavefront (its plain version); protein mode (-b protein)
 has wavefront-cuda (the BLOSUM62 wavefront kernels; the default) and
 wavefront (the plain recurrence).  taxtk's names myers-pallas and
 wavefront-pallas are taken for myers-cuda and wavefront-cuda.  --device
-picks the card (cuda, the default) or the CPU.  --mesh is not ported yet
-and stops with an error.
+picks the card (cuda, the default) or the CPU.
+
+--mesh DPxTP shards the engine over a grid of DP x TP devices (pairs split
+over dp, candidates over tp by refpack shard, the pass-0 reductions merged
+across the grid; parallel/engine_mesh.py).  With --device cuda the grid
+takes cuda:0 ... cuda:{DP*TP-1} and stops with an error when fewer cards
+are visible (no fallback to the CPU); with --device cpu every cell is the
+CPU.
 
 
 Flags, defaults and the stdin->stdout text contract follow the reference
@@ -141,10 +147,6 @@ def main(argv=None) -> int:
                 print("data format can either be nucleotide or protein")
                 return 1
             protein = args.dataformat == "protein"
-            if args.mesh:
-                raise TaxtkError(
-                    "--mesh is not yet ported to taxtk_torch (see ROADMAP.md)"
-                )
             query_store = _open_store(
                 args.query_sequences, args.query_sequences_index, None
             )
@@ -162,6 +164,8 @@ def main(argv=None) -> int:
             try:
                 from ..engine.aligner import BatchAligner
 
+                mesh = (_make_mesh(args.mesh, args.device) if args.mesh
+                        else None)
                 aligner = BatchAligner(
                     "protein" if protein else "dna",
                     dna_backend=args.dna_backend,
@@ -178,6 +182,7 @@ def main(argv=None) -> int:
                     macro_batch=args.macro_batch,
                     logsink=logsink,
                     aligner=aligner,
+                    mesh=mesh,
                 )
                 from ..engine.metrics import profile
 
@@ -207,6 +212,34 @@ def main(argv=None) -> int:
     except TaxtkError as e:
         print(f"An unrecoverable error occurred: {e}", file=sys.stderr)
         return 1
+
+
+def _make_mesh(spec: str, device: str):
+    """'DPxTP' -> a Mesh over the first DP*TP devices of `device`: the
+    cards cuda:0 ... for cuda (an error when fewer are visible), the CPU
+    named DP*TP times for cpu."""
+    import torch
+
+    from ..parallel.mesh import make_mesh
+
+    try:
+        dp_s, tp_s = spec.lower().split("x")
+        dp, tp = int(dp_s), int(tp_s)
+        if dp < 1 or tp < 1:
+            raise ValueError
+    except ValueError:
+        raise TaxtkError(f"bad --mesh spec {spec!r}; expected DPxTP, e.g. 4x2")
+    n = dp * tp
+    if device == "cpu":
+        devices = [torch.device("cpu")] * n
+    else:
+        k = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(k)]
+    if len(devices) < n:
+        raise TaxtkError(
+            f"--mesh {spec} needs {n} devices; {len(devices)} available"
+        )
+    return make_mesh(n, tp=tp, devices=devices)
 
 
 def _make_lca_model(args, tax):

@@ -412,9 +412,10 @@ extern "C" int taxtk_protein_swar(const void* pool, long long stride,
   if (nw < 1 || nw > MAX_WARPS) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs <= 0) return 0;
   // above 48 KB of dynamic shared memory (nw >= 6) the kernel needs the
-  // attribute, set once per process on the current card (the port runs
-  // on one card; elsewhere the launch fails and the wrapper raises)
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // attribute, which is per card: set at every launch on the current
+  // card (the caller makes it the card of the launch's tensors; the call
+  // costs far less than the launch)
+  const cudaError_t attr = cudaFuncSetAttribute(
       protein_swar_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes(MAX_WARPS));
   if (attr != cudaSuccess) return static_cast<int>(attr);

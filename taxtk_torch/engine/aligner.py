@@ -31,15 +31,24 @@ kernels of ops/protein_cuda.py, v5 or, with TAXTK_PROTEIN_SWAR=1, v6;
 the default on the card) and "wavefront" (ops/protein_ref.py, the plain
 recurrence; the default on the CPU).
 
+On a dp x tp mesh (parallel/engine_mesh.py, attached by the engine as
+`mesh_backend`), each pair runs on one cell of the grid: the tp column of
+its reference's refpack shard and a dp row from a stable hash of its text
+side, as in taxtk.  Each cell's pairs take the same dispatch as the
+single-device route (_dispatch_set), on the cell's device and with the
+cell's own pool cache.
+
 There is no fallback: a kernel that cannot build or launch raises.
 Distances are exact; float32 stats as in taxtk.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time as _time
-from typing import List, Sequence, Tuple
+import zlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,18 +89,23 @@ def _pow2ceil(x: int, minimum: int = 16) -> int:
 class _DevPending:
     """A dispatched device bucket: the result's host copy (started
     non-blocking at dispatch), the CUDA event recorded after it, post
-    (host array -> values) and fill (values -> results)."""
+    (host array -> values) and fill (values -> results).  The copy and
+    the event go on the current stream of the result's own card, which
+    need not be the current card (a mesh cell's)."""
 
     __slots__ = ("host", "event", "post", "fill")
 
     def __init__(self, dev: torch.Tensor, post, fill):
         self.event = None
         if dev.device.type == "cuda":
-            self.host = torch.empty(dev.shape, dtype=dev.dtype,
-                                    pin_memory=True)
-            self.host.copy_(dev, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
+            with torch.cuda.device(dev.device):
+                stream = torch.cuda.current_stream(dev.device)
+                self.host = torch.empty(dev.shape, dtype=dev.dtype,
+                                        pin_memory=True)
+                with torch.cuda.stream(stream):
+                    self.host.copy_(dev, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(stream)
         else:
             self.host = dev
         self.post = post
@@ -170,6 +184,10 @@ class BatchAligner:
 
             self.pool_cache = shared_pool_cache(self.device)
         self._plain = self.dna_backend == "myers"
+        # dp x tp engine backend (parallel/engine_mesh.py), set by RpaEngine
+        # when a mesh is in play: each pair then runs on its grid cell
+        self.mesh_backend = None
+        self._pool_caches: Dict[Tuple[int, int], object] = {}  # per cell
 
     def stats(self) -> dict:
         """Counters of this aligner and of its device pool (for --stats)."""
@@ -179,6 +197,12 @@ class BatchAligner:
             c = self.pool_cache
             out["pool"] = dict(hits=c.hits, misses=c.misses,
                                bytes_shipped=c.bytes_shipped, resets=c.resets)
+        if self._pool_caches:
+            out["cell_pools"] = {
+                f"{r},{c}": dict(hits=p.hits, misses=p.misses,
+                                 bytes_shipped=p.bytes_shipped,
+                                 resets=p.resets)
+                for (r, c), p in sorted(self._pool_caches.items())}
         return out
 
     def _tick(self, name, t0):
@@ -202,9 +226,14 @@ class BatchAligner:
     def align_pairs(
         self,
         pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+        shard_ids: Optional[Sequence[int]] = None,
         deferred: bool = False,
     ) -> List[AlignValue]:
         """pairs: list of (a_codes, b_codes) uint8 arrays.
+
+        shard_ids: the tp column of each pair (the refpack shard owning its
+        reference segment); read only with a mesh backend attached, where
+        None puts every pair in column 0.
 
         deferred=True dispatches all device work and returns a zero-arg
         finish() callable that blocks on the readbacks and returns the
@@ -257,9 +286,14 @@ class BatchAligner:
         # dispatch every bucket before blocking on any readback: kernels
         # queue on the stream and each D2H copy starts behind its kernel
         finishers: List[_DevPending] = []
-        if dev_long:
-            self._dispatch_long(pairs, dev_long, results, finishers)
-        self._dispatch_buckets(pairs, work, results, finishers)
+        if self.mesh_backend is not None:
+            if shard_ids is None:  # tp = 1: every pair in column 0
+                shard_ids = [0] * len(pairs)
+            self._dispatch_mesh(pairs, work, dev_long, shard_ids, results,
+                                finishers)
+        else:
+            self._dispatch_set(pairs, work, dev_long, results, finishers,
+                               self.device, self.pool_cache)
 
         def finish():
             t0 = _time.time()
@@ -281,7 +315,118 @@ class BatchAligner:
             return finish
         return finish()
 
-    def _dispatch_buckets(self, pairs, work, results, finishers):
+    def _dispatch_set(self, pairs, work, dev_long, results, finishers,
+                      device, pool_cache):
+        """Dispatch one device's pairs: the long ones as one sorted stream
+        (_dispatch_long), the rest through the shape buckets, on `device`
+        with `pool_cache`."""
+        if dev_long:
+            self._dispatch_long(pairs, dev_long, results, finishers, device,
+                                pool_cache)
+        self._dispatch_buckets(pairs, work, results, finishers, device,
+                               pool_cache)
+
+    def _dispatch_mesh(self, pairs, work, dev_long, shard_ids, results,
+                       finishers):
+        """Partition the pairs over the dp x tp grid and run _dispatch_set
+        per cell (taxtk aligner.py:390-429).  The tp column is the pair's
+        refpack shard; the dp row a stable content hash of its text side
+        (the longer), so a segment's pass-1/2 re-alignments land on the
+        cell whose pool already holds it; _balance_dp_rows then bounds the
+        skew.  A CUDA cell dispatches with its card as the current one."""
+        grid = self.mesh_backend.mesh.devices  # [dp][tp]
+        dp, tp = len(grid), len(grid[0])
+
+        def dp_row(k):
+            if dp == 1:
+                return 0
+            a, b = pairs[k]
+            t = b if len(b) >= len(a) else a
+            key = b"%d:%s:%s" % (len(t), t[:16].tobytes(), t[-16:].tobytes())
+            return zlib.crc32(key) % dp
+
+        per_cell: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {}
+        for lst, slot in ((work, 0), (dev_long, 1)):
+            for k in lst:
+                c = shard_ids[k]
+                per_cell.setdefault((dp_row(k), c), ([], []))[slot].append(k)
+        if dp > 1:
+            self._balance_dp_rows(per_cell, dp, tp)
+        for (r, c) in sorted(per_cell):
+            w, dl = per_cell[(r, c)]
+            dev = grid[r][c]
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                self._dispatch_set(pairs, w, dl, results, finishers, dev,
+                                   self._device_pool(r, c))
+
+    @staticmethod
+    def _balance_dp_rows(per_dev, dp, tp):
+        """Cap per-row load within each tp column at fair share + half a
+        fair share and spill the overflow to the least-loaded rows
+        (deterministic order).  The content-stable dp_row routing keeps
+        segments pool-resident, but a workload where one segment is the
+        text of many pairs would land the whole set on one row and idle
+        the others; spilling only the overflow fraction bounds the
+        imbalance while keeping locality for everything under the cap.
+        (cap = 1.5x fair share, NOT 2x: at dp=2 a fully skewed column is
+        exactly 2x fair share, so a 2x cap never binds there — round-4
+        advisor finding.)  Copy of taxtk's."""
+        for c in range(tp):
+            rows = {r: per_dev.get((r, c)) for r in range(dp)}
+            loads = {
+                r: (len(v[0]) + len(v[1])) if v else 0
+                for r, v in rows.items()
+            }
+            total = sum(loads.values())
+            if not total:
+                continue
+            fair = -(-total // dp)
+            # floor of 2: moving a lone pair off a 2-pair row buys nothing
+            # (launch overhead dominates) and would unsettle pool locality
+            cap = max(2, fair + total // (2 * dp))
+            spill: List[Tuple[int, int]] = []  # (k, slot)
+            for r in sorted(rows):
+                v = rows[r]
+                if v is None or loads[r] <= cap:
+                    continue
+                excess = loads[r] - cap
+                # drain short-bucket work (slot 0) before long pairs,
+                # taking from each list's tail (keeps the head — oldest,
+                # most likely pool-resident — in place)
+                for slot in (0, 1):
+                    while excess and v[slot]:
+                        spill.append((v[slot].pop(), slot))
+                        excess -= 1
+                        loads[r] -= 1
+                    if not excess:
+                        break
+            for k, slot in spill:
+                r = min(sorted(loads), key=lambda x: loads[x])
+                per_dev.setdefault((r, c), ([], []))[slot].append(k)
+                loads[r] += 1
+
+    def _device_pool(self, r, c):
+        """The pool cache of grid cell (r, c), or None where the backend
+        has no pool.  A device that appears once in the grid uses its
+        process-wide cache (taxtk's per-device cache, shared with
+        single-device runs); a device the grid names more than once gives
+        each of its cells a cache of its own."""
+        if self.pool_cache is None:
+            return None
+        p = self._pool_caches.get((r, c))
+        if p is None:
+            from ..ops.seqpool import shared_pool_cache
+
+            grid = self.mesh_backend.mesh.devices
+            dev = grid[r][c]
+            repeats = sum(d == dev for row in grid for d in row) > 1
+            p = self._pool_caches[(r, c)] = shared_pool_cache(
+                dev, key=(r, c) if repeats else None)
+        return p
+
+    def _dispatch_buckets(self, pairs, work, results, finishers, device,
+                          pool_cache):
         if self.mode == "protein" or self.dna_backend not in MYERS_BACKENDS:
             # protein and the DNA wavefront backends: one square bucket
             # per pow2 of the longer side
@@ -293,11 +438,11 @@ class BatchAligner:
                 max_pairs = max(1, self.max_batch_cells // (L * L))
                 if self.mode == "dna" and self.dna_backend == "wavefront-cuda":
                     self._run_wavefront_class(pairs, idxs, L, max_pairs,
-                                              results, finishers)
+                                              results, finishers, device)
                     continue
                 for off in range(0, len(idxs), max_pairs):
                     self._run_bucket(pairs, idxs[off : off + max_pairs], L, L,
-                                     results, finishers)
+                                     results, finishers, device, pool_cache)
             return
         # Myers cost is pairs x text x ceil(pattern/32): only the text
         # length needs bucketing; everything else pads internally
@@ -312,9 +457,10 @@ class BatchAligner:
             )
             for off in range(0, len(idxs), max_pairs):
                 self._run_bucket(pairs, idxs[off : off + max_pairs], N, N,
-                                 results, finishers)
+                                 results, finishers, device, pool_cache)
 
-    def _dispatch_long(self, pairs, idxs_all, results, finishers):
+    def _dispatch_long(self, pairs, idxs_all, results, finishers, device,
+                       pool_cache):
         """Long pairs through the block-systolic kernel: ONE stream sorted
         by text length (descending) and cut into 1024-pair chunks, so each
         launch holds pairs of similar lengths.  A chunk of at least
@@ -356,14 +502,14 @@ class BatchAligner:
                      if B < self.systolic_max_pairs
                      else batched_edit_distance_long)
             dev, post = entry(
-                a_codes, b_codes, a_len, b_len, device=self.device,
-                lazy="device", pool_cache=self.pool_cache, plain=self._plain,
+                a_codes, b_codes, a_len, b_len, device=device,
+                lazy="device", pool_cache=pool_cache, plain=self._plain,
             )
             finishers.append(_DevPending(dev, post, fill_long))
             self._tick("device", t0)
 
     def _run_wavefront_class(self, pairs, idxs, L, sub_pairs, results,
-                             finishers):
+                             finishers, device):
         """One pow2 class of the wavefront-cuda backend: its pairs go to the
         min-plus kernel in one launch, without dummy rows, up to the
         kernel's own device memory (B x (L + 1) scratch cells <=
@@ -376,10 +522,11 @@ class BatchAligner:
         launch_pairs = max(1, self.max_batch_cells // (L + 1))
         for off in range(0, len(idxs), launch_pairs):
             self._run_bucket(pairs, idxs[off : off + launch_pairs], L, L,
-                             results, finishers, dummy_rows=False)
+                             results, finishers, device, None,
+                             dummy_rows=False)
 
-    def _run_bucket(self, pairs, idxs, M, N, results, finishers,
-                    dummy_rows=True):
+    def _run_bucket(self, pairs, idxs, M, N, results, finishers, device,
+                    pool_cache, dummy_rows=True):
         t0 = _time.time()
         B = len(idxs)
         Bpad = _pow2ceil(B, minimum=8) if dummy_rows else B
@@ -407,12 +554,12 @@ class BatchAligner:
 
             if self.protein_backend == "wavefront-cuda":
                 dev, post = batched_protein_align_cuda(
-                    a_codes, b_codes, a_len, b_len, device=self.device,
-                    lazy="device", pool_cache=self.pool_cache,
+                    a_codes, b_codes, a_len, b_len, device=device,
+                    lazy="device", pool_cache=pool_cache,
                 )
             else:
                 dev, post = batched_protein_align(
-                    a_codes, b_codes, a_len, b_len, device=self.device,
+                    a_codes, b_codes, a_len, b_len, device=device,
                     lazy="device",
                 )
             finishers.append(_DevPending(dev, post, fill_protein))
@@ -428,16 +575,16 @@ class BatchAligner:
 
         if self.dna_backend == "wavefront-cuda":
             dev, post = batched_edit_distance_wavefront(
-                a_codes, b_codes, a_len, b_len, device=self.device,
+                a_codes, b_codes, a_len, b_len, device=device,
                 lazy="device")
         elif self.dna_backend == "wavefront":
             dev, post = batched_edit_distance(
-                a_codes, b_codes, a_len, b_len, device=self.device,
+                a_codes, b_codes, a_len, b_len, device=device,
                 lazy="device")
         else:
             dev, post = batched_edit_distance_short(
-                a_codes, b_codes, a_len, b_len, device=self.device,
-                lazy="device", pool_cache=self.pool_cache, plain=self._plain,
+                a_codes, b_codes, a_len, b_len, device=device,
+                lazy="device", pool_cache=pool_cache, plain=self._plain,
             )
         finishers.append(_DevPending(dev, post, fill_dna))
         self._tick("device", t0)

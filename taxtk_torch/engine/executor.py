@@ -1,5 +1,8 @@
 """Copy of taxtk/engine/executor.py with its imports pointed at the port
-(taxtk_torch); the dp x tp mesh paths are not ported yet.
+(taxtk_torch).  With a dp x tp mesh (parallel/mesh.py), each align round's
+pairs go to the tp column of their reference's refpack shard, and the
+pass-0 reductions run as the collective merge of
+parallel/engine_mesh.py (the `merge` stage), which the replay then reads.
 
 Macro-batched RPA execution: stream record sets, batch alignments, emit GFF3.
 
@@ -127,13 +130,6 @@ class RpaEngine:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            from ..utils.errors import TaxtkError
-
-            raise TaxtkError(
-                "the dp x tp mesh engine is not yet ported to taxtk_torch "
-                "(see ROADMAP.md)"
-            )
         if macro_batch is None:
             import os
 
@@ -161,6 +157,14 @@ class RpaEngine:
             "protein" if protein else "dna", device=device
         )
         self.logsink = logsink
+        # dp x tp mesh: candidate pairs shard over the tp (refpack) axis and
+        # pass-0 reductions merge across the grid (parallel/engine_mesh.py)
+        self.mesh_backend = None
+        if mesh is not None:
+            from ..parallel.engine_mesh import MeshEngineBackend
+
+            self.mesh_backend = MeshEngineBackend(mesh, tax.path)
+            self.aligner.mesh_backend = self.mesh_backend
         from .metrics import EngineMetrics
 
         self.metrics = EngineMetrics()
@@ -297,6 +301,10 @@ class RpaEngine:
             reqs = [t.prepare() for t in tasks]
         yield from self._align_round(tasks, caches, pair_caches, reqs)
         merged_by_task: Dict[int, dict] = {}
+        if self.mesh_backend is not None:
+            with m.stage("merge"):
+                merged_by_task = self._pass0_collective_merge(tasks,
+                                                              pair_caches)
         # replay passes run batched through the native dispatcher (one C
         # call per pass per macro-batch, models/replay_dispatch.py); tasks
         # that must stay on the Python replay (decision logging, mesh
@@ -330,11 +338,26 @@ class RpaEngine:
         with self.metrics.stage("fetch"):
             self._prefetch_segments(caches, flat)
             pairs = [caches[ti].pair_sequences(key) for ti, key in flat]
+        shard_ids = None
+        if self.mesh_backend is not None and self.mesh_backend.tp > 1:
+            # route each pair to the tp column owning its reference sequence
+            # (same stable hash that shards the refpack on disk)
+            from ..parallel.refpack import refpack_shard_of
+
+            tp = self.mesh_backend.tp
+            shard_ids = [
+                refpack_shard_of(
+                    tasks[ti].records[key[1]].reference_identifier, tp
+                )
+                for ti, key in flat
+            ]
         with self.metrics.stage("align"):
             if getattr(self.aligner, "supports_deferred", False):
-                finish = self.aligner.align_pairs(pairs, deferred=True)
+                finish = self.aligner.align_pairs(
+                    pairs, shard_ids=shard_ids, deferred=True
+                )
             else:  # test stubs / simple aligners: resolve inline
-                vals = self.aligner.align_pairs(pairs)
+                vals = self.aligner.align_pairs(pairs, shard_ids=shard_ids)
                 finish = lambda: vals  # noqa: E731
         if self.logsink is not None and self.protein:
             # protein -l streams the SeqAn alignment art per +ALN line;
@@ -360,6 +383,34 @@ class RpaEngine:
                 # under operand swap), so one computation serves both key
                 # orders — replay passes look pairs up in anchor order
                 pair_caches[ti].setdefault((key[0], key[2], key[1]), val)
+
+    def _pass0_collective_merge(self, tasks, pair_caches) -> Dict[int, dict]:
+        """Assemble the per-record candidate tables (sharded over tp by the
+        refpack hash) and run the collective pass-0 merge; returns per-task
+        merged reductions keyed by task index (see MeshEngineBackend)."""
+        from ..parallel.refpack import refpack_shard_of
+
+        live = [(ti, t) for ti, t in enumerate(tasks) if t.result is None]
+        if not live:
+            return {}
+        tp = self.mesh_backend.tp
+        per_shard: List[List[tuple]] = [[] for _ in range(tp)]
+        for seg, (ti, t) in enumerate(live):
+            dists, sims, nodes = t.pass0_table_arrays(pair_caches[ti])
+            scores32 = t._native_arrays()[0].astype(np.float32)
+            shards = [
+                refpack_shard_of(rec.reference_identifier, tp)
+                for rec in t.records
+            ]
+            for i, sh in enumerate(shards):
+                per_shard[sh].append(
+                    (seg, dists[i], sims[i], scores32[i], i, int(nodes[i]))
+                )
+        out = self.mesh_backend.pass0_merge(per_shard, len(live))
+        return {
+            ti: {k: v[seg] for k, v in out.items()}
+            for seg, (ti, _) in enumerate(live)
+        }
 
     def _prefetch_segments(self, caches, flat) -> None:
         """Batch all missing reference-segment fetches of this round through

@@ -24,26 +24,28 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _build() -> bool:
+def build_atomic(cmd, lib_path: str) -> bool:
+    """Run g++ command `cmd` (without its -o) into a temporary file beside
+    `lib_path` and move it into place, so that processes building at the
+    same time never load a half-written library.  False if g++ fails."""
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
     try:
-        subprocess.run(
-            [
-                "g++",
-                "-O3",
-                "-march=native",
-                "-shared",
-                "-fPIC",
-                "-pthread",
-                *_SRCS,
-                "-o",
-                _LIB_PATH,
-            ],
-            check=True,
-            capture_output=True,
-        )
+        subprocess.run([*cmd, "-o", tmp], check=True, capture_output=True)
+        os.replace(tmp, lib_path)
         return True
     except (subprocess.CalledProcessError, FileNotFoundError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _build() -> bool:
+    return build_atomic(
+        ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
+         *_SRCS],
+        _LIB_PATH,
+    )
 
 
 def load() -> Optional[ctypes.CDLL]:

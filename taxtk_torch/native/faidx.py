@@ -6,11 +6,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import build_atomic
 
 _HERE = os.path.dirname(__file__)
 _LIB_PATH = os.path.join(_HERE, "libtaxtk_io.so")
@@ -25,13 +26,10 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None:
             return _lib
         if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC):
-            try:
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", _LIB_PATH],
-                    check=True,
-                    capture_output=True,
-                )
-            except (subprocess.CalledProcessError, FileNotFoundError):
+            if not build_atomic(
+                ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC],
+                _LIB_PATH,
+            ):
                 return None
         lib = ctypes.CDLL(_LIB_PATH)
         I64P = ctypes.POINTER(ctypes.c_int64)

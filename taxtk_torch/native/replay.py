@@ -16,11 +16,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import Optional
 
 import numpy as np
+
+from . import build_atomic
 
 _HERE = os.path.dirname(__file__)
 _LIB_PATH = os.path.join(_HERE, "libtaxtk_replay.so")
@@ -36,28 +37,21 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _build() -> bool:
-    try:
-        subprocess.run(
-            [
-                "g++",
-                "-O3",
-                "-march=native",
-                # float ops must not fuse into FMAs: results would diverge
-                # from the Python/numpy float32 semantics bit-for-bit
-                "-ffp-contract=off",
-                "-fno-fast-math",
-                "-shared",
-                "-fPIC",
-                _SRC,
-                "-o",
-                _LIB_PATH,
-            ],
-            check=True,
-            capture_output=True,
-        )
-        return True
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return False
+    return build_atomic(
+        [
+            "g++",
+            "-O3",
+            "-march=native",
+            # float ops must not fuse into FMAs: results would diverge
+            # from the Python/numpy float32 semantics bit-for-bit
+            "-ffp-contract=off",
+            "-fno-fast-math",
+            "-shared",
+            "-fPIC",
+            _SRC,
+        ],
+        _LIB_PATH,
+    )
 
 
 def load() -> Optional[ctypes.CDLL]:

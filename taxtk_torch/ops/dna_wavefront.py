@@ -118,13 +118,15 @@ def _launch(a, b, a_len, b_len):
     width = max(1, min(M, N))  # no pair has more columns (its shorter side)
     rows = torch.empty((B, width), dtype=torch.int32, device=dev)
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # counters: the ticket, then one progress count per ticket
-    rc = _lib()(
-        a.data_ptr(), M, b.data_ptr(), N, a_len.data_ptr(), b_len.data_ptr(),
-        rows.data_ptr(), width, counters.data_ptr() + 4, counters.data_ptr(),
-        out.data_ptr(), B, tickets, R, nw, stream,
-    )
+    with torch.cuda.device(dev):  # the launch's card
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # counters: the ticket, then one progress count per ticket
+        rc = _lib()(
+            a.data_ptr(), M, b.data_ptr(), N, a_len.data_ptr(),
+            b_len.data_ptr(), rows.data_ptr(), width,
+            counters.data_ptr() + 4, counters.data_ptr(), out.data_ptr(), B,
+            tickets, R, nw, stream,
+        )
     cuda_build.check(rc, "dna_wavefront launch")
     dna_wavefront.launches += 1
     return out

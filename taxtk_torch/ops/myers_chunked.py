@@ -156,14 +156,16 @@ def myers_chunked(pool, txt_col, peq, pat_idx, mword, mbit, nlen, score, res,
         raise ValueError("myers_chunked: bad pool or peq")
     score_out = torch.empty_like(score)
     res_out = torch.empty_like(res)
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
-    rc = _lib()(
-        pool.data_ptr(), pool.stride(0), pool.shape[0], txt_col.data_ptr(),
-        peq.data_ptr(), peq.shape[2], pat_idx.data_ptr(), mword.data_ptr(),
-        mbit.data_ptr(), nlen.data_ptr(), score.data_ptr(), res.data_ptr(),
-        hin.data_ptr(), score_out.data_ptr(), res_out.data_ptr(),
-        hout.data_ptr(), hin.shape[1], B, Kb, bits, stream,
-    )
+    with torch.cuda.device(pool.device):  # the launch's card
+        stream = torch.cuda.current_stream(pool.device).cuda_stream
+        rc = _lib()(
+            pool.data_ptr(), pool.stride(0), pool.shape[0],
+            txt_col.data_ptr(), peq.data_ptr(), peq.shape[2],
+            pat_idx.data_ptr(), mword.data_ptr(),
+            mbit.data_ptr(), nlen.data_ptr(), score.data_ptr(), res.data_ptr(),
+            hin.data_ptr(), score_out.data_ptr(), res_out.data_ptr(),
+            hout.data_ptr(), hin.shape[1], B, Kb, bits, stream,
+        )
     cuda_build.check(rc, "myers_chunked launch")
     myers_chunked.launches += 1
     return score_out, res_out, hout

@@ -106,12 +106,14 @@ def myers_short(pool, txt_col, peq, pat_idx, nlen, mlen, K: int, bits: int):
             or not peq.is_contiguous()):
         raise ValueError("myers_short: bad pool or peq")
     out = torch.empty(B, dtype=torch.int32, device=pool.device)
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
-    rc = _lib()(
-        pool.data_ptr(), pool.stride(0), pool.shape[0], txt_col.data_ptr(),
-        peq.data_ptr(), peq.shape[2], pat_idx.data_ptr(), nlen.data_ptr(),
-        mlen.data_ptr(), out.data_ptr(), B, K, W, bits, stream,
-    )
+    with torch.cuda.device(pool.device):  # the launch's card
+        stream = torch.cuda.current_stream(pool.device).cuda_stream
+        rc = _lib()(
+            pool.data_ptr(), pool.stride(0), pool.shape[0],
+            txt_col.data_ptr(), peq.data_ptr(), peq.shape[2],
+            pat_idx.data_ptr(), nlen.data_ptr(), mlen.data_ptr(),
+            out.data_ptr(), B, K, W, bits, stream,
+        )
     cuda_build.check(rc, "myers_short launch")
     myers_short.launches += 1
     return out

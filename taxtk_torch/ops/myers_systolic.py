@@ -210,14 +210,15 @@ def myers_systolic(pool, peq, KC, peq_col, txt_col, head, lanek, nlen, mword,
             or peq.shape[0] % KC or not peq.is_contiguous()):
         raise ValueError("myers_systolic: bad pool or peq")
     out = torch.empty((R, LANE), dtype=torch.int32, device=pool.device)
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
-    kmeta = dict(zip(_META, meta))
-    rc = _lib()(
-        pool.data_ptr(), pool.stride(0), pool.shape[0], peq.data_ptr(),
-        peq.shape[2], *(kmeta[k].data_ptr() for k in _KERNEL_META),
-        pair_slots.data_ptr(), out.data_ptr(), R * LANE, pair_slots.shape[0],
-        kw, warps, bits, stream,
-    )
+    with torch.cuda.device(pool.device):  # the launch's card
+        stream = torch.cuda.current_stream(pool.device).cuda_stream
+        kmeta = dict(zip(_META, meta))
+        rc = _lib()(
+            pool.data_ptr(), pool.stride(0), pool.shape[0], peq.data_ptr(),
+            peq.shape[2], *(kmeta[k].data_ptr() for k in _KERNEL_META),
+            pair_slots.data_ptr(), out.data_ptr(), R * LANE,
+            pair_slots.shape[0], kw, warps, bits, stream,
+        )
     cuda_build.check(rc, "myers_systolic launch")
     myers_systolic.launches += 1
     return out

@@ -211,13 +211,14 @@ def kernel_geometry(B, M, N, nw=None, swar=False):
 
 def _launch(fn, name, out, scratch, pool, a_col, b_col, alen, blen, N,
             *extra):
-    """Launch C entry `fn` on the current stream; `extra` are its trailing
-    int arguments."""
-    stream = torch.cuda.current_stream(pool.device).cuda_stream
-    rc = fn(pool.data_ptr(), pool.stride(0), a_col.data_ptr(),
-            b_col.data_ptr(), alen.data_ptr(), blen.data_ptr(),
-            _sub_on(pool.device).data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), a_col.shape[0], N, *extra, stream)
+    """Launch C entry `fn` on the current stream of the pool's card;
+    `extra` are its trailing int arguments."""
+    with torch.cuda.device(pool.device):  # the launch's card
+        stream = torch.cuda.current_stream(pool.device).cuda_stream
+        rc = fn(pool.data_ptr(), pool.stride(0), a_col.data_ptr(),
+                b_col.data_ptr(), alen.data_ptr(), blen.data_ptr(),
+                _sub_on(pool.device).data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), a_col.shape[0], N, *extra, stream)
     cuda_build.check(rc, f"{name} launch")
 
 

@@ -167,17 +167,28 @@ def from_jax_state(np_pool_columns: np.ndarray, slots, *, bits: int,
     return cache
 
 
-_SHARED: Dict[torch.device, DevicePoolCache] = {}
+_SHARED: Dict[Tuple[torch.device, object], DevicePoolCache] = {}
 
 
-def shared_pool_cache(device) -> DevicePoolCache:
+def _indexed(device) -> torch.device:
+    """`device` with its index: an unindexed CUDA device is the current
+    card, so "cuda" and "cuda:0" name one pool on card 0."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def shared_pool_cache(device, key=None) -> DevicePoolCache:
     """The process-wide pool cache for `device`.  Pools are content-keyed,
     so every aligner in the process may share one: repeated runs against
-    the same refpack ship each unique row once (as in taxtk)."""
-    device = torch.device(device)
-    c = _SHARED.get(device)
+    the same refpack ship each unique row once (as in taxtk).  key: a
+    further name, so that several caches can live on one device (the
+    cells of a mesh grid that names one device more than once)."""
+    device = _indexed(device)
+    c = _SHARED.get((device, key))
     if c is None:
-        c = _SHARED[device] = DevicePoolCache(device)
+        c = _SHARED[(device, key)] = DevicePoolCache(device)
     return c
 
 

@@ -121,12 +121,27 @@ def test_cli_stdout_matches_taxtk(refpack, monkeypatch, capsys, backend):  # noq
 
 
 def test_cli_unported_modes_fail_clearly(refpack, monkeypatch, capsys):  # noqa: F811
+    """Every mode is ported: --mesh runs (on the CPU here, equal to the
+    single-device run); what fails is a grid of more cards than there
+    are, clearly and without falling back to the CPU."""
+    import torch
+
     monkeypatch.setenv("TAXATORTK_TAXONOMY_NCBI", str(refpack["dir"]))
     argv = ["-g", refpack["mapping"], "-q", refpack["qfile"],
-            "-f", refpack["refdata"], "--device", "cpu"]
+            "-f", refpack["refdata"]]
+    outs = []
+    for extra in (["--mesh", "1x1", "--device", "cpu"], ["--device", "cpu"]):
+        monkeypatch.setattr(sys, "stdin", io.StringIO(refpack["alignments"]))
+        assert torch_cli.main(argv + extra) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].startswith("##gff-version 3\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     monkeypatch.setattr(sys, "stdin", io.StringIO(refpack["alignments"]))
     assert torch_cli.main(argv + ["--mesh", "1x1"]) == 1
-    assert "not yet ported" in capsys.readouterr().err
+    captured = capsys.readouterr()
+    assert "--mesh 1x1 needs 1 devices; 0 available" in captured.err
+    assert captured.out == ""
 
 
 def test_default_device_is_cuda():

@@ -35,6 +35,25 @@ def test_cli_import_loads_no_jax_and_no_taxtk():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_parallel_import_loads_no_jax_and_no_taxtk():
+    """The mesh, its engine merge and the multi-host layer, and the lazy
+    exports of taxtk_torch.parallel."""
+    code = (
+        "import sys\n"
+        "import taxtk_torch.parallel.mesh, taxtk_torch.parallel.engine_mesh\n"
+        "import taxtk_torch.parallel.distributed\n"
+        "from taxtk_torch.parallel import make_mesh, dryrun_step\n"
+        "from taxtk_torch.parallel import distributed_classify_step\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'taxtk'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_sources_import_no_jax_and_no_taxtk():
     files = sorted((ROOT / "taxtk_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
