@@ -88,7 +88,14 @@ Phases, one line each:
            --mesh-worker) classifying their host shards with myers-cuda,
            merge_gff3_parts of their parts equal to the single run's; and,
            only with more than one card, --mesh kx1 and 1xk over the
-           cards.
+           cards;
+  bench    bench_torch.py (the port's bench.py) in a subprocess: its one
+           JSON line must hold every family's keys (the kernel GCUPS,
+           e2e_*, e2e_config4_*, protein_kernel_* and protein_e2e_*, each
+           with its protocol string) and no *_error field; the script
+           itself holds each family's warm-up GFF3 against its reference
+           run and each kernel family's results against the host C++.
+           The line is printed as it came, after "bench: ".
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -1956,6 +1963,44 @@ def phase_mesh(dna_gff3, protein_out, n_contigs=300, n_orfs=2000):
     print(f"mesh: {json.dumps(rec)}", flush=True)
 
 
+# what bench_torch.py's line must hold: each family's headline, spread and
+# protocol (the config-4 family also its launch record and peak memory)
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "protocol", "iqr_pct",
+    "roofline_pct", "e2e_mbp_per_hour", "e2e_spread_pct",
+    "e2e_cold_engine_s", "e2e_h2d_mb", "e2e_protocol",
+    "e2e_config4_mbp_per_hour", "e2e_config4_spread_pct",
+    "e2e_config4_launches", "e2e_config4_host_long_pairs",
+    "e2e_config4_systolic_launches", "e2e_config4_peak_mem_mb",
+    "e2e_config4_pool_resets", "e2e_config4_protocol",
+    "protein_kernel_gcups", "protein_kernel_swar_gcups",
+    "protein_vs_baseline", "protein_kernel_protocol",
+    "protein_e2e_maa_per_hour", "protein_e2e_spread_pct",
+    "protein_e2e_protocol", "card_name", "card_power_limit")
+
+
+def phase_bench(timeout_s=800):
+    """bench_torch.py in a subprocess, as a user runs it; returns its JSON
+    line after checking that it holds BENCH_KEYS and no *_error field."""
+    t = time.time()
+    try:
+        r = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+            capture_output=True, text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        fail(f"bench_torch.py ran past {timeout_s} s")
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode != 0 or len(lines) != 1:
+        fail(f"bench_torch.py exited {r.returncode}: {r.stderr[-3000:]}")
+    rec = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if rec.get(k) is None]
+    errors = [k for k in rec if k.endswith("_error")]
+    if missing or errors:
+        fail(f"bench_torch.py line lacks {missing} or has {errors}")
+    print(f"bench: {lines[0]}", flush=True)
+    print(f"bench: done in {time.time() - t:.1f} s", flush=True)
+
+
 KERNELS = (
     ("myers_short", "taxtk_torch/csrc/myers_short.cu",
      "taxtk/ops/pallas_myers.py:121"),
@@ -2014,6 +2059,7 @@ def main() -> int:
                        by_nw=True)
     phase_pipeline()
     phase_mesh(dna_gff3, protein_out)
+    phase_bench()
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "taxtk"))
     if bad:

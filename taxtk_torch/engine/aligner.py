@@ -174,6 +174,8 @@ class BatchAligner:
         self.systolic_max_pairs = 1 << 30
         self.pairs_aligned = 0
         self.cells_computed = 0
+        # pairs sent to the host C++ Myers (every pair on "native")
+        self.host_long_pairs = 0
         self.stage_seconds = {}  # per-phase accounting (kernel vs staging)
         # cross-round device-resident sequence pool (ops/seqpool.py),
         # shared by every aligner on this device
@@ -192,6 +194,7 @@ class BatchAligner:
     def stats(self) -> dict:
         """Counters of this aligner and of its device pool (for --stats)."""
         out = dict(pairs=self.pairs_aligned, cells=self.cells_computed,
+                   host_long_pairs=self.host_long_pairs,
                    stage_seconds=dict(self.stage_seconds))
         if self.pool_cache is not None:
             c = self.pool_cache
@@ -270,6 +273,7 @@ class BatchAligner:
             for k in host_long:
                 a, b = pairs[k]
                 self.cells_computed += len(a) * len(b)
+            self.host_long_pairs += len(host_long)
             t_start = _time.time()
             host_error: List[BaseException] = []
 
@@ -305,7 +309,11 @@ class BatchAligner:
                 f.run()
             self._tick("collect", t0)
             if host_thread is not None:
+                # host_long_wait: how long the host C++ outlasted the
+                # device buckets (0 when the card set the pace)
+                t0 = _time.time()
                 host_thread.join()
+                self._tick("host_long_wait", t0)
                 if host_error:
                     raise host_error[0]
             self.pairs_aligned += len(pairs)
