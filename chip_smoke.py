@@ -84,7 +84,11 @@ Phases, one line each:
            and launches, and the pass-0 merge against the host's
            reductions on every live task of one macro-batch; dryrun_step
            on [cuda:0] * 2 at tp = 2 against its run with the plain
-           wavefront on the card; two gloo processes (this script with
+           wavefront on the card; RpaEngine with a bare dp mesh
+           (BatchAligner("dna", dna_backend="myers", mesh=Mesh([[cuda:0]]
+           * 2)), no engine backend), its GFF3 equal to the engine phase's,
+           both rows running pairs and no kernel launched, with its engine
+           seconds on a line of their own; two gloo processes (this script with
            --mesh-worker) classifying their host shards with myers-cuda,
            merge_gff3_parts of their parts equal to the single run's; and,
            only with more than one card, --mesh kx1 and 1xk over the
@@ -1840,6 +1844,53 @@ def _in_turns(run, want, label, kernels):
     return recs["single"], recs["1x1"]
 
 
+def bare_mesh_run(tax, aln, mapping, qfa, rfa, want):
+    """RpaEngine with a bare dp mesh, two rows naming cuda:0: the aligner
+    BatchAligner("dna", dna_backend="myers", mesh=Mesh([[cuda:0]] * 2))
+    spreads its pairs over the rows' cells (_dispatch_mesh, the plain
+    recurrence), with no engine backend attached.  Its GFF3 must equal
+    `want` and both rows must have run pairs (each cell that does has a
+    pool in the aligner's stats).  Every kernel's count is set to 0 just
+    before and read just after: the myers backend runs the plain
+    versions, so a launch is a fault.  Returns the step's record."""
+    import torch
+
+    from taxtk_torch.cli.taxator import _open_db_store, _open_store
+    from taxtk_torch.engine.aligner import BatchAligner
+    from taxtk_torch.engine.executor import RpaEngine
+    from taxtk_torch.ops.seqpool import reset_shared_pools
+    from taxtk_torch.parallel.mesh import Mesh
+
+    reset_shared_pools()
+    card = torch.device("cuda", 0)
+    aligner = BatchAligner("dna", dna_backend="myers", device="cuda",
+                           mesh=Mesh([[card]] * 2))
+    engine = RpaEngine(tax, _open_store(qfa, None, None),
+                       _open_db_store([rfa], [rfa + ".fai"], None),
+                       aligner=aligner, device="cuda")
+    rsets = _resolved_sets(aln, mapping, tax)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    engine.run(iter(rsets), out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    print(f"mesh: bare 2x1 engine s: {secs}", flush=True)
+    if out.getvalue() != want:
+        fail("the bare mesh's GFF3 differs from the engine phase's")
+    if launches:
+        fail(f"the bare mesh's myers backend launched kernels {launches}")
+    stats = aligner.stats()
+    cells = sorted(stats.get("cell_pools", {}))
+    if cells != ["0,0", "1,0"]:
+        fail(f"the bare mesh ran pairs on cells {cells}, not on both rows")
+    return dict(engine_s=secs, cells=stats["cell_pools"],
+                stage_s=engine.metrics.stage_seconds, aligner=stats)
+
+
 def phase_mesh(dna_gff3, protein_out, n_contigs=300, n_orfs=2000):
     """The dp x tp mesh on the card (see the module docstring), held
     against the engine phases' DNA GFF3 and protein (GFF3, -l log)."""
@@ -1915,7 +1966,11 @@ def phase_mesh(dna_gff3, protein_out, n_contigs=300, n_orfs=2000):
             fail(f"dryrun_step launched dna_wavefront {dry_launches} times")
         rec["dryrun"] = dict(shape=[256, 16, 256], seconds=dry_s,
                              launches=dry_launches)
-        # 4. two gloo processes on the card, one host shard each
+        # 4. a bare dp mesh (no engine backend): the myers backend's pairs
+        # spread over two rows naming cuda:0
+        rec["dna_bare_2x1"] = bare_mesh_run(engine.tax, aln, mapping, qfa,
+                                            rfa, dna_gff3)
+        # 5. two gloo processes on the card, one host shard each
         recs = _gloo_run(d)
         parts = [os.path.join(d, f"part.{p}.gff3") for p in range(2)]
         merged, single = (os.path.join(d, x) for x in ("merged.gff3",
@@ -1932,7 +1987,7 @@ def phase_mesh(dna_gff3, protein_out, n_contigs=300, n_orfs=2000):
             if not r["launches"]["myers_short"]:
                 fail(f"mesh worker {r['rank']} never launched myers_short")
         rec["gloo_2"] = recs
-        # 5. real cards, where there are several
+        # 6. real cards, where there are several
         k = torch.cuda.device_count()
         if k > 1:
             for spec in (f"{k}x1", f"1x{k}"):

@@ -6,3 +6,7 @@ protein), the binner, the binning pipeline and the companion CLIs
 (python -m taxtk_torch.cli.<name>), with hand-written CUDA kernels
 (taxtk_torch/csrc) built with nvcc at first use.
 """
+
+# version string reported by CLI tools; tracks reference behaviour parity
+# (reference: core/src/constants.hh:46 program_version = "1.5.0")
+REFERENCE_COMPAT_VERSION = "1.5.0"

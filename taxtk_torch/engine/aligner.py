@@ -38,6 +38,14 @@ side, as in taxtk.  Each cell's pairs take the same dispatch as the
 single-device route (_dispatch_set), on the cell's device and with the
 cell's own pool cache.
 
+A bare mesh (`BatchAligner(mesh=...)` with no engine backend attached)
+spreads the "myers" backend's pairs over its grid the same way
+(_dispatch_mesh, every pair in column 0).  It stands for taxtk's
+`BatchAligner._myers_sharded` (taxtk/engine/aligner.py:727-765), which
+splits each bucket into one contiguous slice a dp row; the distances are
+the same, and here each cell's buckets run asynchronously with its own
+pool, long pairs included.
+
 There is no fallback: a kernel that cannot build or launch raises.
 Distances are exact; float32 stats as in taxtk.
 """
@@ -130,6 +138,11 @@ class BatchAligner:
     "myers-pallas" and "wavefront-pallas" name the kernel routes,
     "myers-cuda" and "wavefront-cuda".  device:
     "cuda" (default) or "cpu".
+
+    mesh: an optional parallel/mesh.py Mesh.  With no engine backend
+    attached (RpaEngine attaches one when it is given the mesh), a
+    "myers" DNA aligner spreads its pairs over the mesh's dp rows, as
+    taxtk's does; every other backend and a protein aligner ignore it.
     """
 
     # align_pairs(deferred=True) returns a finish() callable (the engine's
@@ -143,6 +156,7 @@ class BatchAligner:
         dna_backend: str | None = None,
         protein_backend: str | None = None,
         device="cuda",
+        mesh=None,
     ):
         if mode not in ("dna", "protein"):
             raise TaxtkError(f"unknown aligner mode {mode!r}; dna or protein")
@@ -190,6 +204,7 @@ class BatchAligner:
         # when a mesh is in play: each pair then runs on its grid cell
         self.mesh_backend = None
         self._pool_caches: Dict[Tuple[int, int], object] = {}  # per cell
+        self.mesh = mesh  # a bare mesh; see _grid
 
     def stats(self) -> dict:
         """Counters of this aligner and of its device pool (for --stats)."""
@@ -207,6 +222,18 @@ class BatchAligner:
                                  resets=p.resets)
                 for (r, c), p in sorted(self._pool_caches.items())}
         return out
+
+    def _grid(self):
+        """The [dp][tp] devices the pairs spread over, or None: the engine
+        backend's mesh, else a bare mesh for the "myers" DNA backend
+        (taxtk aligner.py:630-640 shards only its XLA myers backend over a
+        bare mesh)."""
+        if self.mesh_backend is not None:
+            return self.mesh_backend.mesh.devices
+        if (self.mesh is not None and self.mode == "dna"
+                and self.dna_backend == "myers"):
+            return self.mesh.devices
+        return None
 
     def _tick(self, name, t0):
         self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + (
@@ -235,8 +262,8 @@ class BatchAligner:
         """pairs: list of (a_codes, b_codes) uint8 arrays.
 
         shard_ids: the tp column of each pair (the refpack shard owning its
-        reference segment); read only with a mesh backend attached, where
-        None puts every pair in column 0.
+        reference segment); read only with a mesh (_grid), where None puts
+        every pair in column 0.
 
         deferred=True dispatches all device work and returns a zero-arg
         finish() callable that blocks on the readbacks and returns the
@@ -290,11 +317,12 @@ class BatchAligner:
         # dispatch every bucket before blocking on any readback: kernels
         # queue on the stream and each D2H copy starts behind its kernel
         finishers: List[_DevPending] = []
-        if self.mesh_backend is not None:
+        grid = self._grid()
+        if grid is not None:
             if shard_ids is None:  # tp = 1: every pair in column 0
                 shard_ids = [0] * len(pairs)
-            self._dispatch_mesh(pairs, work, dev_long, shard_ids, results,
-                                finishers)
+            self._dispatch_mesh(grid, pairs, work, dev_long, shard_ids,
+                                results, finishers)
         else:
             self._dispatch_set(pairs, work, dev_long, results, finishers,
                                self.device, self.pool_cache)
@@ -334,15 +362,15 @@ class BatchAligner:
         self._dispatch_buckets(pairs, work, results, finishers, device,
                                pool_cache)
 
-    def _dispatch_mesh(self, pairs, work, dev_long, shard_ids, results,
-                       finishers):
-        """Partition the pairs over the dp x tp grid and run _dispatch_set
-        per cell (taxtk aligner.py:390-429).  The tp column is the pair's
-        refpack shard; the dp row a stable content hash of its text side
-        (the longer), so a segment's pass-1/2 re-alignments land on the
-        cell whose pool already holds it; _balance_dp_rows then bounds the
-        skew.  A CUDA cell dispatches with its card as the current one."""
-        grid = self.mesh_backend.mesh.devices  # [dp][tp]
+    def _dispatch_mesh(self, grid, pairs, work, dev_long, shard_ids,
+                       results, finishers):
+        """Partition the pairs over the [dp][tp] `grid` and run
+        _dispatch_set per cell (taxtk aligner.py:390-429).  The tp column
+        is the pair's refpack shard; the dp row a stable content hash of
+        its text side (the longer), so a segment's pass-1/2 re-alignments
+        land on the cell whose pool already holds it; _balance_dp_rows
+        then bounds the skew.  A CUDA cell dispatches with its card as the
+        current one."""
         dp, tp = len(grid), len(grid[0])
 
         def dp_row(k):
@@ -362,7 +390,7 @@ class BatchAligner:
             self._balance_dp_rows(per_cell, dp, tp)
         for (r, c) in sorted(per_cell):
             w, dl = per_cell[(r, c)]
-            dev = grid[r][c]
+            dev = resolve_device(grid[r][c])
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
                 self._dispatch_set(pairs, w, dl, results, finishers, dev,
@@ -426,7 +454,7 @@ class BatchAligner:
         if p is None:
             from ..ops.seqpool import shared_pool_cache
 
-            grid = self.mesh_backend.mesh.devices
+            grid = self._grid()
             dev = grid[r][c]
             repeats = sum(d == dev for row in grid for d in row) > 1
             p = self._pool_caches[(r, c)] = shared_pool_cache(

@@ -154,7 +154,7 @@ class RpaEngine:
         self.toppercent = toppercent
         self.macro_batch = macro_batch
         self.aligner = aligner or BatchAligner(
-            "protein" if protein else "dna", device=device
+            "protein" if protein else "dna", device=device, mesh=mesh
         )
         self.logsink = logsink
         # dp x tp mesh: candidate pairs shard over the tp (refpack) axis and

@@ -54,6 +54,29 @@ def test_parallel_import_loads_no_jax_and_no_taxtk():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_bare_mesh_aligner_loads_no_jax_and_no_taxtk():
+    """BatchAligner with a bare dp mesh, through its grid's cells."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from taxtk_torch.engine.aligner import BatchAligner\n"
+        "from taxtk_torch.parallel.mesh import Mesh\n"
+        "al = BatchAligner('dna', dna_backend='myers', device='cpu',\n"
+        "                  mesh=Mesh([[torch.device('cpu')]] * 2))\n"
+        "a = np.array([0, 1, 2, 3], np.uint8)\n"
+        "out = al.align_pairs([(a, a[:3]), (a, a)])\n"
+        "assert [float(r.distance) for r in out] == [1.0, 0.0], out\n"
+        "assert al.stats().get('cell_pools'), al.stats()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'taxtk'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_sources_import_no_jax_and_no_taxtk():
     files = sorted((ROOT / "taxtk_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
