@@ -95,11 +95,19 @@ Phases, one line each:
            cards;
   bench    bench_torch.py (the port's bench.py) in a subprocess: its one
            JSON line must hold every family's keys (the kernel GCUPS,
-           e2e_*, e2e_config4_*, protein_kernel_* and protein_e2e_*, each
-           with its protocol string) and no *_error field; the script
-           itself holds each family's warm-up GFF3 against its reference
-           run and each kernel family's results against the host C++.
-           The line is printed as it came, after "bench: ".
+           e2e_*, e2e_config4_*, protein_kernel_*, protein_e2e_*, and the
+           scale families' config5_* (BASELINE.json's config 5: 1M
+           contigs through the binning pipeline) and config4_stream_*
+           (config 4 at 10k contigs): the timed run's wall, Mbp/h, peak
+           RSS and device memory, stage and aligner seconds, launches,
+           Kernel 1's pairs per launch and pool traffic, and the gate's
+           card and native walls at one count with Kernel 1's CUDA-event
+           sum; each family with its protocol string) and no
+           *_error field, and each scale family's timed and gate runs
+           must have launched Kernel 1; the script itself holds each family's
+           warm-up GFF3 (the scale families: every output file) against
+           its reference run and each kernel family's results against the
+           host C++.  The line is printed as it came, after "bench: ".
 Then the kernels' JSON record, the card's name and power limit, and as
 the last line {"ok": true, "device": {...}}.  Any failure exits non-zero
 without the ok line.  Nothing of JAX or of the taxtk package is imported.
@@ -1485,50 +1493,6 @@ def phase_protein_engine(n_orfs=2000):
                           gff0, log0)
 
 
-@contextlib.contextmanager
-def stage_seconds(seconds):
-    """Wall seconds of the binning workflow's stages, summed into seconds
-    by name: the RPA engine's run (which streams its GFF3 into `sort`),
-    the binner and the summaries; the rest of a run (the gzip alignments
-    archive, the taxonomy, .fai files, sort's finish) is its wall time
-    less these."""
-    from taxtk_torch.engine.executor import RpaEngine
-    from taxtk_torch.pipeline import workflows
-
-    def timed_stage(name, fn):
-        def run(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                seconds[name] = (seconds.get(name, 0.0)
-                                 + time.perf_counter() - t)
-        return run
-
-    with mock.patch.object(RpaEngine, "run",
-                           timed_stage("engine", RpaEngine.run)), \
-            mock.patch.object(workflows, "run_binner",
-                              timed_stage("binner", workflows.run_binner)), \
-            mock.patch.object(workflows, "binning_to_summary",
-                              timed_stage("summaries",
-                                          workflows.binning_to_summary)):
-        yield seconds
-
-
-def outdir_bytes(outdir):
-    """Every file the workflow wrote into outdir, by name, with its bytes
-    (the gzip alignments archive decompressed: gzip stamps its header with
-    the time)."""
-    import gzip
-
-    found = {}
-    for name in sorted(os.listdir(outdir)):
-        opener = gzip.open if name.endswith(".gz") else open
-        with opener(os.path.join(outdir, name), "rb") as f:
-            found[name] = f.read()
-    return found
-
-
 def phase_pipeline(n_contigs=300, n_orfs=2000):
     """taxtk-binning, the port's pipeline CLI (taxtk_torch.cli.pipeline.main
     in this process, on the card by default), with --alignments on the DNA
@@ -1542,6 +1506,7 @@ def phase_pipeline(n_contigs=300, n_orfs=2000):
 
     sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
     from bench_e2e import make_workload, make_workload_protein
+    from bench_torch import outdir_bytes, stage_seconds
 
     from taxtk_torch.cli import pipeline
     from taxtk_torch.engine.aligner import BatchAligner
@@ -2018,8 +1983,21 @@ def phase_mesh(dna_gff3, protein_out, n_contigs=300, n_orfs=2000):
     print(f"mesh: {json.dumps(rec)}", flush=True)
 
 
+# what each scale family of bench_torch.py (bench_scale) prints, after
+# its name and "_"
+SCALE_KEYS = (
+    "contigs", "query_mbp", "wall_s", "mbp_per_hour", "gate_contigs",
+    "gate_wall_s", "gate_native_wall_s", "gate_vs_native", "gate_files",
+    "binned", "peak_rss_mb", "rss_before_mb", "peak_mem_mb", "stage_s",
+    "aligner_s", "pairs", "host_long_pairs", "launches", "kernel2_launches",
+    "pairs_per_launch", "gate_launches", "gate_kernel1_ms_sum",
+    "gate_kernel1_bound_ms_sum", "pool", "protocol")
+# the scale families bench_torch.py runs by default (config5_dense only
+# when named)
+SCALE_FAMILIES = ("config5", "config4_stream")
 # what bench_torch.py's line must hold: each family's headline, spread and
-# protocol (the config-4 family also its launch record and peak memory)
+# protocol (the config-4 family also its launch record and peak memory),
+# and every key of the default scale families
 BENCH_KEYS = (
     "metric", "value", "unit", "vs_baseline", "protocol", "iqr_pct",
     "roofline_pct", "e2e_mbp_per_hour", "e2e_spread_pct",
@@ -2031,12 +2009,14 @@ BENCH_KEYS = (
     "protein_kernel_gcups", "protein_kernel_swar_gcups",
     "protein_vs_baseline", "protein_kernel_protocol",
     "protein_e2e_maa_per_hour", "protein_e2e_spread_pct",
-    "protein_e2e_protocol", "card_name", "card_power_limit")
+    "protein_e2e_protocol", "card_name", "card_power_limit") + tuple(
+        f"{fam}_{k}" for fam in SCALE_FAMILIES for k in SCALE_KEYS)
 
 
 def phase_bench(timeout_s=800):
-    """bench_torch.py in a subprocess, as a user runs it; returns its JSON
-    line after checking that it holds BENCH_KEYS and no *_error field."""
+    """bench_torch.py in a subprocess, as a user runs it; prints its JSON
+    line after checking that it holds BENCH_KEYS and no *_error field, and
+    that each scale family's timed and gate runs launched Kernel 1."""
     t = time.time()
     try:
         r = subprocess.run(
@@ -2052,6 +2032,11 @@ def phase_bench(timeout_s=800):
     errors = [k for k in rec if k.endswith("_error")]
     if missing or errors:
         fail(f"bench_torch.py line lacks {missing} or has {errors}")
+    for fam in SCALE_FAMILIES:
+        for run in ("launches", "gate_launches"):
+            if rec[f"{fam}_{run}"].get("myers_short", 0) <= 0:
+                fail(f"bench_torch.py's {fam} ({run}) never launched "
+                     "myers_short")
     print(f"bench: {lines[0]}", flush=True)
     print(f"bench: done in {time.time() - t:.1f} s", flush=True)
 

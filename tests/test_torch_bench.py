@@ -202,10 +202,34 @@ def test_script_without_a_card_exits_nonzero_and_prints_no_metric():
 
 
 def test_families_and_keys_follow_bench_py():
-    """The families run in bench.py's order, one process each, and the
-    run_once dict carries every key of bench_e2e.run_once's."""
+    """The families run in bench.py's order, one process each, then the
+    scale families (config5_dense only when named), each with its own
+    timeout; chip_smoke.py's bench phase requires every key of the default
+    scale families; and the run_once dict carries every key of
+    bench_e2e.run_once's."""
+    import chip_smoke
+
     assert bench_torch.FAMILIES == ("kernel", "e2e", "config4",
-                                    "protein_kernel", "protein_e2e")
+                                    "protein_kernel", "protein_e2e",
+                                    "config5", "config4_stream")
+    assert bench_torch.OPT_IN == ("config5_dense",)
+    assert set(bench_torch.SCALE) == {"config5", "config5_dense",
+                                      "config4_stream"}
+    assert set(bench_torch.FAMILY_TIMEOUT_S) == set(
+        bench_torch.FAMILIES + bench_torch.OPT_IN)
+    assert bench_torch.SCALE["config5"]["contigs"] == 1_000_000
+    assert bench_torch.SCALE["config5_dense"]["contigs"] == 1_000_000
+    assert bench_torch.SCALE["config4_stream"]["contigs"] == 10_000
+    assert chip_smoke.SCALE_FAMILIES == tuple(
+        f for f in bench_torch.FAMILIES if f in bench_torch.SCALE)
+    for fam in chip_smoke.SCALE_FAMILIES:
+        for key in ("wall_s", "mbp_per_hour", "gate_native_wall_s",
+                    "gate_vs_native", "binned",
+                    "peak_rss_mb", "peak_mem_mb", "stage_s", "aligner_s",
+                    "launches", "pairs_per_launch", "pool", "protocol"):
+            assert f"{fam}_{key}" in chip_smoke.BENCH_KEYS, (fam, key)
+    assert not any(k.startswith("config5_dense")
+                   for k in chip_smoke.BENCH_KEYS)
     assert (bench_torch.B, bench_torch.L) == (bench.B, bench.L)
     assert (bench_torch.SETS, bench_torch.ROUNDS, bench_torch.NREP) == (
         bench.SETS, bench.ROUNDS, bench.NREP)
