@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 from ..constants import DEFAULT_RANKS, PROGRAM_VERSION, CITATION_NOTE
@@ -87,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-w", "--db-whitelist")
     p.add_argument("--macro-batch", type=int, default=None)
     p.add_argument("--profile", metavar="TRACE_DIR",
-                   help="write a torch.profiler trace of the run")
+                   help="write a torch.profiler trace of the run "
+                        "(trace.json) and its spans (spans.jsonl)")
     p.add_argument("--dna-backend",
                    choices=["myers-cuda", "myers", "native", "wavefront-cuda",
                             "wavefront", "myers-pallas"],
@@ -103,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="device for the alignment kernels (default: cuda)")
     p.add_argument("--stats", action="store_true",
-                   help="print run metrics to stderr when done")
+                   help="print run metrics and span totals to stderr "
+                        "when done")
     p.add_argument("--mesh", metavar="DPxTP",
                    help="shard the engine over a DPxTP device mesh: pair "
                         "batches split over dp, candidates over tp (refpack "
@@ -184,13 +187,29 @@ def main(argv=None) -> int:
                     aligner=aligner,
                     mesh=mesh,
                 )
-                from ..engine.metrics import profile
+                from ..engine import metrics
 
-                with profile(args.profile):
-                    engine.run(rsets, sys.stdout)
+                # --stats and --profile keep the program's spans
+                tracing = bool(args.stats or args.profile)
+                if tracing:
+                    metrics.start_tracing()
+                try:
+                    with metrics.profile(args.profile):
+                        engine.run(rsets, sys.stdout)
+                finally:
+                    if tracing:
+                        metrics.stop_tracing()
+                        kept = metrics.drain()
+                if args.profile:
+                    metrics.write_spans(
+                        os.path.join(args.profile, "spans.jsonl"),
+                        kept["spans"])
                 if args.stats:
                     engine.metrics.report()
                     print(f"taxtk_torch aligner: {json.dumps(aligner.stats())}",
+                          file=sys.stderr)
+                    print(metrics.format_totals(kept["spans"],
+                                                kept["counts"]),
                           file=sys.stderr)
             finally:
                 if logsink is not None:

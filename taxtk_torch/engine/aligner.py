@@ -54,7 +54,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time as _time
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -72,6 +71,7 @@ from ..ops.host import WORD
 from ..ops.protein_cuda import batched_protein_align_cuda
 from ..ops.protein_ref import batched_protein_align
 from ..utils.errors import TaxtkError
+from .metrics import span, where
 
 DNA_BACKENDS = ("myers-cuda", "myers", "native", "wavefront-cuda",
                 "wavefront")
@@ -106,7 +106,7 @@ class _DevPending:
     def __init__(self, dev: torch.Tensor, post, fill):
         self.event = None
         if dev.device.type == "cuda":
-            with torch.cuda.device(dev.device):
+            with span("entry.readback"), torch.cuda.device(dev.device):
                 stream = torch.cuda.current_stream(dev.device)
                 self.host = torch.empty(dev.shape, dtype=dev.dtype,
                                         pin_memory=True)
@@ -190,7 +190,9 @@ class BatchAligner:
         self.cells_computed = 0
         # pairs sent to the host C++ Myers (every pair on "native")
         self.host_long_pairs = 0
-        self.stage_seconds = {}  # per-phase accounting (kernel vs staging)
+        # per-phase seconds (kernel vs staging): the sums of the aligner.*
+        # spans of the same names (_stage)
+        self.stage_seconds = {}
         # cross-round device-resident sequence pool (ops/seqpool.py),
         # shared by every aligner on this device
         self.pool_cache = None
@@ -235,10 +237,10 @@ class BatchAligner:
             return self.mesh.devices
         return None
 
-    def _tick(self, name, t0):
-        self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + (
-            _time.time() - t0
-        )
+    def _stage(self, name, count=None, **ctx):
+        """Span aligner.<name>, summed into stage_seconds[name]."""
+        return span("aligner." + name, self.stage_seconds, name, count=count,
+                    **ctx)
 
     def _run_host_long(self, pairs, idxs, results):
         # cells_computed for these pairs is counted by the caller before
@@ -270,28 +272,33 @@ class BatchAligner:
         results list (the macro-batch pipeline overlaps that wait with
         another batch's host replay)."""
         results: List[AlignValue] = [None] * len(pairs)  # type: ignore
+        # the round these pairs belong to, named by the spans that other
+        # threads open on its behalf
+        ctx = where()
 
-        dna = self.mode == "dna"
-        native_all = dna and self.dna_backend == "native"
-        myers = dna and self.dna_backend in MYERS_BACKENDS
-        work: List[int] = []
-        dev_long: List[int] = []
-        host_long: List[int] = []
-        for k, (a, b) in enumerate(pairs):
-            if len(a) == 0 or len(b) == 0:
-                results[k] = self._empty_pair(len(a), len(b))
-            elif native_all:
-                host_long.append(k)
-            elif myers and min(len(a), len(b)) > self.long_pattern_threshold:
-                if (
-                    min(len(a), len(b)) <= self.tpu_long_pattern_cap
-                    and max(len(a), len(b)) <= self.tpu_long_text_cap
-                ):
-                    dev_long.append(k)
-                else:
+        with span("aligner.route", count=len(pairs)):
+            dna = self.mode == "dna"
+            native_all = dna and self.dna_backend == "native"
+            myers = dna and self.dna_backend in MYERS_BACKENDS
+            work: List[int] = []
+            dev_long: List[int] = []
+            host_long: List[int] = []
+            for k, (a, b) in enumerate(pairs):
+                if len(a) == 0 or len(b) == 0:
+                    results[k] = self._empty_pair(len(a), len(b))
+                elif native_all:
                     host_long.append(k)
-            else:
-                work.append(k)
+                elif (myers and min(len(a), len(b))
+                      > self.long_pattern_threshold):
+                    if (
+                        min(len(a), len(b)) <= self.tpu_long_pattern_cap
+                        and max(len(a), len(b)) <= self.tpu_long_text_cap
+                    ):
+                        dev_long.append(k)
+                    else:
+                        host_long.append(k)
+                else:
+                    work.append(k)
 
         host_thread = None
         if host_long:
@@ -301,17 +308,17 @@ class BatchAligner:
                 a, b = pairs[k]
                 self.cells_computed += len(a) * len(b)
             self.host_long_pairs += len(host_long)
-            t_start = _time.time()
             host_error: List[BaseException] = []
 
             def _host_work():
-                try:
-                    self._run_host_long(pairs, host_long, results)
-                except BaseException as e:  # re-raised by finish()
-                    host_error.append(e)
-                self._tick("host_long", t_start)
+                with self._stage("host_long", len(host_long), **ctx):
+                    try:
+                        self._run_host_long(pairs, host_long, results)
+                    except BaseException as e:  # re-raised by finish()
+                        host_error.append(e)
 
-            host_thread = threading.Thread(target=_host_work)
+            host_thread = threading.Thread(target=_host_work,
+                                           name="taxtk-host-long")
             host_thread.start()
 
         # dispatch every bucket before blocking on any readback: kernels
@@ -328,20 +335,17 @@ class BatchAligner:
                                self.device, self.pool_cache)
 
         def finish():
-            t0 = _time.time()
-            for f in finishers:
-                f.wait()
-            self._tick("device_wait", t0)
-            t0 = _time.time()
-            for f in finishers:
-                f.run()
-            self._tick("collect", t0)
+            with self._stage("device_wait", **ctx):
+                for f in finishers:
+                    f.wait()
+            with self._stage("collect", **ctx):
+                for f in finishers:
+                    f.run()
             if host_thread is not None:
                 # host_long_wait: how long the host C++ outlasted the
                 # device buckets (0 when the card set the pace)
-                t0 = _time.time()
-                host_thread.join()
-                self._tick("host_long_wait", t0)
+                with self._stage("host_long_wait", **ctx):
+                    host_thread.join()
                 if host_error:
                     raise host_error[0]
             self.pairs_aligned += len(pairs)
@@ -507,23 +511,22 @@ class BatchAligner:
         )
         for off in range(0, len(idxs), 1024):
             chunk = idxs[off : off + 1024]
-            t0 = _time.time()
             B = len(chunk)
-            maxa = max(len(pairs[k][0]) for k in chunk)
-            maxb = max(len(pairs[k][1]) for k in chunk)
-            a_codes = np.zeros((B, maxa), np.uint8)
-            b_codes = np.zeros((B, maxb), np.uint8)
-            a_len = np.zeros(B, np.int32)
-            b_len = np.zeros(B, np.int32)
-            for r, k in enumerate(chunk):
-                a, b = pairs[k]
-                a_codes[r, : len(a)] = a
-                b_codes[r, : len(b)] = b
-                a_len[r] = len(a)
-                b_len[r] = len(b)
-            self.cells_computed += int((a_len.astype(np.int64) * b_len).sum())
-            self._tick("stage_batch", t0)
-            t0 = _time.time()
+            with self._stage("stage_batch", B):
+                maxa = max(len(pairs[k][0]) for k in chunk)
+                maxb = max(len(pairs[k][1]) for k in chunk)
+                a_codes = np.zeros((B, maxa), np.uint8)
+                b_codes = np.zeros((B, maxb), np.uint8)
+                a_len = np.zeros(B, np.int32)
+                b_len = np.zeros(B, np.int32)
+                for r, k in enumerate(chunk):
+                    a, b = pairs[k]
+                    a_codes[r, : len(a)] = a
+                    b_codes[r, : len(b)] = b
+                    a_len[r] = len(a)
+                    b_len[r] = len(b)
+                self.cells_computed += int(
+                    (a_len.astype(np.int64) * b_len).sum())
 
             def fill_long(dist, chunk=chunk, a_len=a_len, b_len=b_len):
                 for r, k in enumerate(chunk):
@@ -537,12 +540,12 @@ class BatchAligner:
             entry = (batched_edit_distance_systolic
                      if B < self.systolic_max_pairs
                      else batched_edit_distance_long)
-            dev, post = entry(
-                a_codes, b_codes, a_len, b_len, device=device,
-                lazy="device", pool_cache=pool_cache, plain=self._plain,
-            )
-            finishers.append(_DevPending(dev, post, fill_long))
-            self._tick("device", t0)
+            with self._stage("device", B):
+                dev, post = entry(
+                    a_codes, b_codes, a_len, b_len, device=device,
+                    lazy="device", pool_cache=pool_cache, plain=self._plain,
+                )
+                finishers.append(_DevPending(dev, post, fill_long))
 
     def _run_wavefront_class(self, pairs, idxs, L, sub_pairs, results,
                              finishers, device):
@@ -563,24 +566,22 @@ class BatchAligner:
 
     def _run_bucket(self, pairs, idxs, M, N, results, finishers, device,
                     pool_cache, dummy_rows=True):
-        t0 = _time.time()
         B = len(idxs)
-        Bpad = _pow2ceil(B, minimum=8) if dummy_rows else B
-        a_codes = np.zeros((Bpad, M), dtype=np.uint8)
-        b_codes = np.zeros((Bpad, N), dtype=np.uint8)
-        a_len = np.zeros(Bpad, dtype=np.int32)
-        b_len = np.zeros(Bpad, dtype=np.int32)
-        for r, k in enumerate(idxs):
-            a, b = pairs[k]
-            a_codes[r, : len(a)] = a
-            b_codes[r, : len(b)] = b
-            a_len[r] = len(a)
-            b_len[r] = len(b)
-        a_len[B:] = 1  # dummy rows
-        b_len[B:] = 1
-        self.cells_computed += int((a_len * b_len).sum())
-        self._tick("stage_batch", t0)
-        t0 = _time.time()
+        with self._stage("stage_batch", B):
+            Bpad = _pow2ceil(B, minimum=8) if dummy_rows else B
+            a_codes = np.zeros((Bpad, M), dtype=np.uint8)
+            b_codes = np.zeros((Bpad, N), dtype=np.uint8)
+            a_len = np.zeros(Bpad, dtype=np.int32)
+            b_len = np.zeros(Bpad, dtype=np.int32)
+            for r, k in enumerate(idxs):
+                a, b = pairs[k]
+                a_codes[r, : len(a)] = a
+                b_codes[r, : len(b)] = b
+                a_len[r] = len(a)
+                b_len[r] = len(b)
+            a_len[B:] = 1  # dummy rows
+            b_len[B:] = 1
+            self.cells_computed += int((a_len * b_len).sum())
         if self.mode == "protein":
             def fill_protein(out, idxs=idxs):
                 dist = out["distance"]  # already float32 (post() math)
@@ -588,18 +589,18 @@ class BatchAligner:
                 for r, k in enumerate(idxs):
                     results[k] = AlignValue(dist[r], sim[r])
 
-            if self.protein_backend == "wavefront-cuda":
-                dev, post = batched_protein_align_cuda(
-                    a_codes, b_codes, a_len, b_len, device=device,
-                    lazy="device", pool_cache=pool_cache,
-                )
-            else:
-                dev, post = batched_protein_align(
-                    a_codes, b_codes, a_len, b_len, device=device,
-                    lazy="device",
-                )
-            finishers.append(_DevPending(dev, post, fill_protein))
-            self._tick("device", t0)
+            with self._stage("device", B):
+                if self.protein_backend == "wavefront-cuda":
+                    dev, post = batched_protein_align_cuda(
+                        a_codes, b_codes, a_len, b_len, device=device,
+                        lazy="device", pool_cache=pool_cache,
+                    )
+                else:
+                    dev, post = batched_protein_align(
+                        a_codes, b_codes, a_len, b_len, device=device,
+                        lazy="device",
+                    )
+                finishers.append(_DevPending(dev, post, fill_protein))
             return
 
         def fill_dna(dist, idxs=idxs, a_len=a_len, b_len=b_len):
@@ -609,21 +610,21 @@ class BatchAligner:
             for r, k in enumerate(idxs):
                 results[k] = AlignValue(dist32[r], matches32[r])
 
-        if self.dna_backend == "wavefront-cuda":
-            dev, post = batched_edit_distance_wavefront(
-                a_codes, b_codes, a_len, b_len, device=device,
-                lazy="device")
-        elif self.dna_backend == "wavefront":
-            dev, post = batched_edit_distance(
-                a_codes, b_codes, a_len, b_len, device=device,
-                lazy="device")
-        else:
-            dev, post = batched_edit_distance_short(
-                a_codes, b_codes, a_len, b_len, device=device,
-                lazy="device", pool_cache=pool_cache, plain=self._plain,
-            )
-        finishers.append(_DevPending(dev, post, fill_dna))
-        self._tick("device", t0)
+        with self._stage("device", B):
+            if self.dna_backend == "wavefront-cuda":
+                dev, post = batched_edit_distance_wavefront(
+                    a_codes, b_codes, a_len, b_len, device=device,
+                    lazy="device")
+            elif self.dna_backend == "wavefront":
+                dev, post = batched_edit_distance(
+                    a_codes, b_codes, a_len, b_len, device=device,
+                    lazy="device")
+            else:
+                dev, post = batched_edit_distance_short(
+                    a_codes, b_codes, a_len, b_len, device=device,
+                    lazy="device", pool_cache=pool_cache, plain=self._plain,
+                )
+            finishers.append(_DevPending(dev, post, fill_dna))
 
     def _empty_pair(self, la: int, lb: int) -> AlignValue:
         if self.mode == "dna":

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .transfer import h2d
 
 _BIG = 1 << 24
 
@@ -68,10 +69,10 @@ def wavefront_inputs(a_codes, b_codes, a_len, b_len, device):
     """A padded numpy batch as tensors on `device`: uint8 codes, int32
     lengths."""
     return (
-        torch.from_numpy(np.ascontiguousarray(a_codes, np.uint8)).to(device),
-        torch.from_numpy(np.ascontiguousarray(b_codes, np.uint8)).to(device),
-        torch.from_numpy(np.ascontiguousarray(a_len, np.int32)).to(device),
-        torch.from_numpy(np.ascontiguousarray(b_len, np.int32)).to(device),
+        h2d(np.ascontiguousarray(a_codes, np.uint8), device),
+        h2d(np.ascontiguousarray(b_codes, np.uint8), device),
+        h2d(np.ascontiguousarray(a_len, np.int32), device),
+        h2d(np.ascontiguousarray(b_len, np.int32), device),
     )
 
 

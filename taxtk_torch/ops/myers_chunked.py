@@ -41,6 +41,7 @@ from .myers_ref import (
     M32, myers_block_step, peq_from_codes, to_i32, unpack_columns,
 )
 from .seqpool import DevicePoolCache
+from .transfer import h2d
 
 CHUNK_KC = 64  # pattern words per launch (2048 bp), as in taxtk
 # the kernel is built for CHUNK_KC only; smaller blocks (block_words) are
@@ -207,16 +208,15 @@ def chunked_inputs(a_codes, b_codes, a_len, b_len, device,
         pat_idx, txt_idx, plen_pat, _, _, _ = _pool_indices(
             plen, idx_a, idx_b, swap, B, B, Kp, Up)
         pat_u = text_pool[: Kp * WORD // cpb].index_select(
-            1, torch.from_numpy(slots).to(dev).long())
+            1, h2d(slots, dev).long())
         txt_col = slots[txt_idx]
     else:
         pat_u_np, plen_pat, text_u, pat_idx, txt_col = _build_pool_wire(
             rows, plen, idx_a, idx_b, swap, B, B, Kp, Np, Up, bits)
-        pat_u = torch.from_numpy(pat_u_np).to(dev)
-        text_pool = torch.from_numpy(text_u).to(dev)
-    peq = peq_from_codes(pat_u, torch.from_numpy(plen_pat).to(dev), Kp, bits)
-    t32 = lambda x: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(x, np.int32)).to(dev)
+        pat_u = h2d(pat_u_np, dev)
+        text_pool = h2d(text_u, dev)
+    peq = peq_from_codes(pat_u, h2d(plen_pat, dev), Kp, bits)
+    t32 = lambda x: h2d(np.ascontiguousarray(x, np.int32), dev)  # noqa: E731
     args = (text_pool, t32(txt_col), peq, t32(pat_idx),
             t32((m_len - 1) >> 5), t32((m_len - 1) & 31), t32(n_len),
             t32(m_len), N, Kb, bits)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.metrics import span
 from . import cuda_build
 from .host import (
     ALPHA, WORD, _build_pool_wire, _dedupe_pool, _pool_indices, _pow2,
@@ -30,6 +31,7 @@ from .host import (
 from .myers_chunked import batched_edit_distance_long
 from .myers_ref import myers_wavefront, peq_from_codes, unpack_columns
 from .seqpool import DevicePoolCache
+from .transfer import h2d
 
 # the kernel's template set: pattern words K, and at each K the words per
 # lane W it is built for (a group of K / W <= 32 lanes per pair)
@@ -127,55 +129,68 @@ def short_inputs(a_codes, b_codes, a_len, b_len, device,
     """Host prep of the short entry: dedupe into pool rows, ship the rows
     not yet resident, build peq on the device.  Returns (args, post):
     `myers_short(*args)` computes the raw distances and post(host) pins
-    m_len == 0 and returns numpy distances."""
-    dev = torch.device(device)
-    a_codes = np.asarray(a_codes, dtype=np.uint8)
-    b_codes = np.asarray(b_codes, dtype=np.uint8)
-    a_len = np.asarray(a_len, np.int32)
-    b_len = np.asarray(b_len, np.int32)
-    B = a_codes.shape[0]
-    swap = a_len > b_len
-    m_len = np.where(swap, b_len, a_len).astype(np.int32)
-    n_len = np.where(swap, a_len, b_len).astype(np.int32)
-    N = int(n_len.max(initial=1))
-    K = _pow2(max(1, -(-int(m_len.max(initial=1)) // WORD)))
-    if K > MAX_K:
-        raise ValueError(
-            f"pattern of {int(m_len.max())} bp exceeds Kernel 1's "
-            f"{MAX_K * WORD} bp; batched_edit_distance_short hands such "
-            f"batches to the chunked entry"
-        )
-    Np = -(-N // 4) * 4  # the one-off text pool: whole bytes at 2 or 4 bits
+    m_len == 0 and returns numpy distances.
 
-    rows, plen, idx_a, idx_b, keys = _dedupe_pool(a_codes, b_codes, a_len,
-                                                  b_len)
-    Up = len(rows)
-    bits = 2 if all(int(r.max(initial=0)) < 4 for r in rows) else 4
+    Spans: entry.dedupe (pool rows and the wire's bits), pool.ensure
+    (ops/seqpool.py), entry.pack (the per-pair indices, or the one-off
+    pool's wire), entry.peq (the pattern columns' gather and the device
+    build) and entry.meta (the per-pair tables' upload)."""
+    dev = torch.device(device)
+    B = len(a_len)
+    with span("entry.dedupe", count=B):
+        a_codes = np.asarray(a_codes, dtype=np.uint8)
+        b_codes = np.asarray(b_codes, dtype=np.uint8)
+        a_len = np.asarray(a_len, np.int32)
+        b_len = np.asarray(b_len, np.int32)
+        swap = a_len > b_len
+        m_len = np.where(swap, b_len, a_len).astype(np.int32)
+        n_len = np.where(swap, a_len, b_len).astype(np.int32)
+        N = int(n_len.max(initial=1))
+        K = _pow2(max(1, -(-int(m_len.max(initial=1)) // WORD)))
+        if K > MAX_K:
+            raise ValueError(
+                f"pattern of {int(m_len.max())} bp exceeds Kernel 1's "
+                f"{MAX_K * WORD} bp; batched_edit_distance_short hands such "
+                f"batches to the chunked entry"
+            )
+        Np = -(-N // 4) * 4  # the one-off pool: whole bytes at 2 or 4 bits
+
+        rows, plen, idx_a, idx_b, keys = _dedupe_pool(a_codes, b_codes, a_len,
+                                                      b_len)
+        Up = len(rows)
+        bits = 2 if all(int(r.max(initial=0)) < 4 for r in rows) else 4
     cpb = 8 // bits
     if pool_cache is not None:
         Hc = max(DevicePoolCache.height_class(N), _pow2(K * WORD))
         text_pool, slots = pool_cache.ensure(bits, Hc, keys, rows, plen)
-        pat_idx, txt_idx, plen_pat, _, _, _ = _pool_indices(
-            plen, idx_a, idx_b, swap, B, B, K, Up)
-        pat_cols = torch.from_numpy(slots).to(dev)
-        pat_u = text_pool[: K * WORD // cpb].index_select(1, pat_cols.long())
-        txt_col = slots[txt_idx]
+        with span("entry.pack", count=B):
+            pat_idx, txt_idx, plen_pat, _, _, _ = _pool_indices(
+                plen, idx_a, idx_b, swap, B, B, K, Up)
+            txt_col = slots[txt_idx]
+        with span("entry.peq", count=B):
+            pat_cols = h2d(slots, dev)
+            pat_u = text_pool[: K * WORD // cpb].index_select(
+                1, pat_cols.long())
+            peq = peq_from_codes(pat_u, h2d(plen_pat, dev), K, bits)
     else:
-        pat_u_np, plen_pat, text_u, pat_idx, txt_col = _build_pool_wire(
-            rows, plen, idx_a, idx_b, swap, B, B, K, Np, Up, bits)
-        pat_u = torch.from_numpy(pat_u_np).to(dev)
-        text_pool = torch.from_numpy(text_u).to(dev)
-    peq = peq_from_codes(pat_u, torch.from_numpy(plen_pat).to(dev), K, bits)
-    args = (
-        text_pool,
-        torch.from_numpy(np.ascontiguousarray(txt_col, np.int32)).to(dev),
-        peq,
-        torch.from_numpy(pat_idx).to(dev),
-        torch.from_numpy(n_len).to(dev),
-        torch.from_numpy(m_len).to(dev),
-        K,
-        bits,
-    )
+        with span("entry.pack", count=B):
+            pat_u_np, plen_pat, text_u, pat_idx, txt_col = _build_pool_wire(
+                rows, plen, idx_a, idx_b, swap, B, B, K, Np, Up, bits)
+            text_pool = h2d(text_u, dev)
+        with span("entry.peq", count=B):
+            pat_u = h2d(pat_u_np, dev)
+            peq = peq_from_codes(pat_u, h2d(plen_pat, dev), K, bits)
+    with span("entry.meta", count=B):
+        args = (
+            text_pool,
+            h2d(np.ascontiguousarray(txt_col, np.int32), dev),
+            peq,
+            h2d(pat_idx, dev),
+            h2d(n_len, dev),
+            h2d(m_len, dev),
+            K,
+            bits,
+        )
 
     def post(host):
         return np.where(m_len == 0, n_len, np.asarray(host).reshape(B))
@@ -206,7 +221,8 @@ def batched_edit_distance_short(
             pool_cache=pool_cache, lazy=lazy, plain=plain)
     args, post = short_inputs(a_codes, b_codes, a_len, b_len,
                               resolve_device(device), pool_cache)
-    out = myers_short_plain(*args) if plain else myers_short(*args)
+    with span("entry.launch", count=len(a_len)):
+        out = myers_short_plain(*args) if plain else myers_short(*args)
     if lazy == "device":
         return out, post
     return post(out.cpu().numpy())

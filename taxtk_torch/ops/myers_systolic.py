@@ -23,12 +23,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine.metrics import span
 from . import cuda_build
 from .host import (
     ALPHA, LANE, STAG, WORD, _dedupe_pool, _pack_systolic, _pow2,
 )
 from .myers_ref import M32, peq_from_codes, unpack_columns
 from .seqpool import DevicePoolCache
+from .transfer import h2d
 
 DEFAULT_KC = 32  # pattern words per slot (1024 bp), as in taxtk
 # the kernel is built for DEFAULT_KC only; smaller slots (block_words) are
@@ -233,56 +235,69 @@ def systolic_inputs(a_codes, b_codes, a_len, b_len, device,
     """Host prep of the systolic entry (B >= 1): slot layout, per-pair
     table, pool append, device peq.  Returns (args, post):
     `myers_systolic(*args)` computes the [R, LANE] slot results and
-    post(host) reads each pair's last slot and pins empty sides."""
+    post(host) reads each pair's last slot and pins empty sides.
+
+    Spans: entry.pack (the wire's bits and the slot layout), entry.dedupe
+    (pool rows), pool.ensure (ops/seqpool.py), entry.peq (the pattern
+    columns' gather and the device build) and entry.meta (the slot
+    tables and the per-pair table, laid out and uploaded)."""
     dev = torch.device(device)
-    a_codes = np.asarray(a_codes, dtype=np.uint8)
-    b_codes = np.asarray(b_codes, dtype=np.uint8)
-    a_len = np.asarray(a_len, np.int32)
-    b_len = np.asarray(b_len, np.int32)
-    B = a_codes.shape[0]
+    B = len(a_len)
     KC = block_words
-    # 2-bit wire for N-free batches (pad fields read as code 3; results
-    # are harvested exactly at n_len and peq masks pattern pads by plen)
-    bits = 2 if (int(a_codes.max(initial=0)) < 4
-                 and int(b_codes.max(initial=0)) < 4) else 4
+    with span("entry.pack", count=B):
+        a_codes = np.asarray(a_codes, dtype=np.uint8)
+        b_codes = np.asarray(b_codes, dtype=np.uint8)
+        a_len = np.asarray(a_len, np.int32)
+        b_len = np.asarray(b_len, np.int32)
+        # 2-bit wire for N-free batches (pad fields read as code 3; results
+        # are harvested exactly at n_len and peq masks pattern pads by plen)
+        bits = 2 if (int(a_codes.max(initial=0)) < 4
+                     and int(b_codes.max(initial=0)) < 4) else 4
+        inputs, (R, Np, nbmax) = _pack_systolic(
+            a_codes, b_codes, a_len, b_len, KC,
+            build_pools=pool_cache is None, bits=bits)
     cpb = 8 // bits
-    inputs, (R, Np, nbmax) = _pack_systolic(
-        a_codes, b_codes, a_len, b_len, KC, build_pools=pool_cache is None,
-        bits=bits)
     B1 = _pow2(B + 1)
     txt_col = inputs["txt_col"]  # pair column (B: unused) per slot
     if pool_cache is not None:
-        rows, plen, idx_a, idx_b, keys = _dedupe_pool(
-            a_codes, b_codes, a_len, b_len)
-        swap = a_len > b_len
-        pat_entry = np.where(swap, idx_b, idx_a)
-        txt_entry = np.where(swap, idx_a, idx_b)
+        with span("entry.dedupe", count=B):
+            rows, plen, idx_a, idx_b, keys = _dedupe_pool(
+                a_codes, b_codes, a_len, b_len)
+            swap = a_len > b_len
+            pat_entry = np.where(swap, idx_b, idx_a)
+            txt_entry = np.where(swap, idx_a, idx_b)
         Hc = max(DevicePoolCache.height_class(Np), _pow2(nbmax * KC * WORD))
         # height ratchet: reuse the tallest class this cache has used, so
         # a smaller later round hits the rows the first round shipped
         Hc = max(Hc, pool_cache.systolic_hc)
         pool_cache.systolic_hc = Hc
         text_pool, slots = pool_cache.ensure(bits, Hc, keys, rows, plen)
-        pat_cols = np.zeros(B1, np.int32)
-        pat_cols[:B] = slots[pat_entry]
-        txt_cols = np.zeros(B1, np.int32)
-        txt_cols[:B] = slots[txt_entry]
-        pat_u = text_pool[: nbmax * KC * WORD // cpb].index_select(
-            1, torch.from_numpy(pat_cols).to(dev).long())
-        txt_col = txt_cols[txt_col]  # pool column per slot
+        with span("entry.peq", count=B):
+            pat_cols = np.zeros(B1, np.int32)
+            pat_cols[:B] = slots[pat_entry]
+            txt_cols = np.zeros(B1, np.int32)
+            txt_cols[:B] = slots[txt_entry]
+            pat_u = text_pool[: nbmax * KC * WORD // cpb].index_select(
+                1, h2d(pat_cols, dev).long())
+            txt_col = txt_cols[txt_col]  # pool column per slot
+            peq = peq_from_codes(pat_u, h2d(inputs["plen_pat"], dev),
+                                 nbmax * KC, bits)
     else:
-        pat_u = torch.from_numpy(inputs["pat_u"]).to(dev)
-        text_pool = torch.from_numpy(inputs["text_u"]).to(dev)
-    peq = peq_from_codes(pat_u, torch.from_numpy(inputs["plen_pat"]).to(dev),
-                         nbmax * KC, bits)
-    slot_arrays = dict(inputs, txt_col=txt_col)
-    meta = [
-        torch.from_numpy(np.ascontiguousarray(
-            slot_arrays[k].reshape(R, LANE), np.int32)).to(dev)
-        for k in _META
-    ]
-    pair_slots = inputs["pair_slots"]
-    last = pair_slots[:, 0] + pair_slots[:, 1] - 1
+        with span("entry.peq", count=B):
+            pat_u = h2d(inputs["pat_u"], dev)
+            text_pool = h2d(inputs["text_u"], dev)
+            peq = peq_from_codes(pat_u, h2d(inputs["plen_pat"], dev),
+                                 nbmax * KC, bits)
+    with span("entry.meta", count=B):
+        slot_arrays = dict(inputs, txt_col=txt_col)
+        meta = [
+            h2d(np.ascontiguousarray(slot_arrays[k].reshape(R, LANE),
+                                     np.int32), dev)
+            for k in _META
+        ]
+        pair_slots = inputs["pair_slots"]
+        last = pair_slots[:, 0] + pair_slots[:, 1] - 1
+        pair_slots_dev = h2d(pair_slots, dev)
 
     def post(host):
         res = np.asarray(host).reshape(-1)[last]
@@ -291,7 +306,7 @@ def systolic_inputs(a_codes, b_codes, a_len, b_len, device,
         empty = (a_len == 0) | (b_len == 0)
         return np.where(empty, np.maximum(a_len, b_len), res).astype(np.int32)
 
-    return (text_pool, peq, KC, *meta, torch.from_numpy(pair_slots).to(dev),
+    return (text_pool, peq, KC, *meta, pair_slots_dev,
             int(pair_slots[:, 1].max()), bits), post
 
 
@@ -315,7 +330,8 @@ def batched_edit_distance_systolic(
         return np.zeros(0, np.int32)
     args, post = systolic_inputs(a_codes, b_codes, a_len, b_len, dev,
                                  block_words, pool_cache)
-    out = myers_systolic_plain(*args) if plain else myers_systolic(*args)
+    with span("entry.launch", count=len(a_len)):
+        out = myers_systolic_plain(*args) if plain else myers_systolic(*args)
     if lazy == "device":
         return out, post
     return post(out.cpu().numpy())

@@ -42,6 +42,7 @@ from . import cuda_build
 from .blosum import BLOSUM62, GAP_SCORE
 from .host import _dedupe_pool, _pack_text_pool, _pow2
 from .protein_ref import nw_stats
+from .transfer import h2d
 
 _AA_N = BLOSUM62.shape[0]
 _BIAS = 4  # BLOSUM62 min is -4 -> nibble range [0, 15]
@@ -297,9 +298,9 @@ def protein_inputs(a_codes, b_codes, a_len, b_len, device,
         U = max(len(rows), 1)
         packed = _pack_text_pool(rows, plen, np.ones(len(rows), bool),
                                  max(M, N, 1), U, bits=8)
-        pool = torch.from_numpy(packed).to(dev)
+        pool = h2d(packed, dev)
         slots = np.arange(U, dtype=np.int32)
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)  # noqa: E731
+    t = lambda x: h2d(np.ascontiguousarray(x, np.int32), dev)  # noqa: E731
     return (pool, t(slots[idx_a]), t(slots[idx_b]), t(a_len), t(b_len), M, N)
 
 
@@ -307,7 +308,7 @@ def self_scores(pool, a_col, b_col, alen, blen, M, N):
     """Per-pair BLOSUM self-scores on the device (pallas_protein.py
     _from_codes :556-566): the diagonal summed over codes < 27 within
     each real length (callers may pad with any byte)."""
-    dtab = torch.from_numpy(_DIAG).to(pool.device)
+    dtab = h2d(_DIAG, pool.device)
     total = 0
     for col, n, ln in ((a_col, M, alen), (b_col, N, blen)):
         codes = _codes(pool, col, max(n, 1))

@@ -23,6 +23,7 @@ import torch
 
 from ..device import resolve_device
 from .blosum import BLOSUM62, GAP_SCORE
+from .transfer import h2d
 
 AA_N = BLOSUM62.shape[0]  # 27 residue codes
 CODES = 32  # 5-bit clamped code space
@@ -127,9 +128,9 @@ def batched_protein_align(a_codes, b_codes, a_len, b_len, device="cuda",
     M = a_codes.shape[1]
 
     out = nw_stats(
-        torch.from_numpy(a_codes.astype(np.int64)).to(dev),
-        torch.from_numpy(b_codes.astype(np.int64)).to(dev),
-        torch.from_numpy(a_len).to(dev), torch.from_numpy(b_len).to(dev),
+        h2d(a_codes.astype(np.int64), dev),
+        h2d(b_codes.astype(np.int64), dev),
+        h2d(a_len, dev), h2d(b_len, dev),
         REF_SUB, REF_MATCH,
     )
 

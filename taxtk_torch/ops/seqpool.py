@@ -27,7 +27,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..engine.metrics import span
 from .host import _pack_text_pool, _pow2
+from .transfer import h2d
 
 
 class _Pool:
@@ -87,7 +89,13 @@ class DevicePoolCache:
         """Returns (pool tensor, slots[int32 array over rows]).  Ships the
         rows whose content key is not yet resident, appended as one packed
         block of n_pad columns (only n_new are committed; the pad tail is
-        unreferenced and the next append overwrites it)."""
+        unreferenced and the next append overwrites it).  Spans: pool.ensure
+        (count: rows), with pool.pack (count: rows shipped) and the append's
+        h2d under it."""
+        with span("pool.ensure", count=len(rows)):
+            return self._ensure(bits, Hc, keys, rows, lens)
+
+    def _ensure(self, bits, Hc, keys, rows, lens):
         p = self.pool(bits, Hc)
         slots = np.empty(len(rows), np.int32)
         missing: List[int] = []
@@ -120,22 +128,23 @@ class DevicePoolCache:
                 # again: n_used == 0 and it is the only pool)
                 self.pools.clear()
                 self.resets += 1
-                return self.ensure(bits, Hc, keys, rows, lens)
-            mrows = [rows[i] for i in missing]
-            mlens = lens[missing]
-            # pack and ship at the new rows' own pow2 height: bytes past a
-            # row's length are never read, so a short append into a tall
-            # column is sound and ships content-sized bytes
-            Hs = min(Hc, max(128, _pow2(int(mlens.max(initial=1)))))
-            packed = _pack_text_pool(
-                mrows, mlens, np.ones(n_new, bool), Hs, n_pad, bits
-            )
+                return self._ensure(bits, Hc, keys, rows, lens)
+            with span("pool.pack", count=n_new):
+                mrows = [rows[i] for i in missing]
+                mlens = lens[missing]
+                # pack and ship at the new rows' own pow2 height: bytes
+                # past a row's length are never read, so a short append
+                # into a tall column is sound and ships content-sized bytes
+                Hs = min(Hc, max(128, _pow2(int(mlens.max(initial=1)))))
+                packed = _pack_text_pool(
+                    mrows, mlens, np.ones(n_new, bool), Hs, n_pad, bits
+                )
             dev = p.dev
             if need_cap > p.cap:
                 dev = torch.full((dev.shape[0], need_cap), -1,
                                  dtype=torch.int8, device=self.device)
                 dev[:, : p.cap].copy_(p.dev)
-            new = torch.from_numpy(packed).to(self.device)
+            new = h2d(packed, self.device)
             dev[: new.shape[0], p.n_used : p.n_used + n_pad].copy_(new)
             # commit point: everything above may raise without corrupting
             self.misses += n_new

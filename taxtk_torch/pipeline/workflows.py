@@ -29,6 +29,7 @@ from ..formats.alignments import iter_alignment_records
 from ..formats.mapping import load_seqid_taxid_mapping
 from ..binning.binner import run_binner
 from ..device import resolve_device
+from ..engine.metrics import span
 from ..refpack.store import IndexedFastaStore
 from ..taxonomy.flat import parse_ncbi_flat_files
 from ..utils.errors import TaxtkError, FileError
@@ -150,8 +151,11 @@ def _sorted_fallback(engine, resolved, fh, tmpdir: str) -> None:
     """Tempfile merge-sort fallback when coreutils `sort` is unavailable;
     matches `LC_ALL=C sort -k1,1` with bounded memory."""
     w = _MergeSortWriter(fh, tmpdir)
-    engine.run(iter_record_sets(resolved(), True, False), w)
-    w.finish()
+    rsets = iter_record_sets(resolved(), True, False)
+    with span("pipeline.engine"):
+        engine.run(rsets, w)
+    with span("pipeline.sort"):
+        w.finish()
 
 
 def run_aligner_blast(refpack: Refpack, input_fasta: str, out_path: str,
@@ -311,9 +315,10 @@ def run_binning_workflow(
             tools.append("orfm")
         verify_external_tools(tools, refpack_dir=refpack_dir)
     os.makedirs(outdir, exist_ok=True)
-    tax = refpack.load_taxonomy()
-    tax_pruned = tax.prune_to_marked_ranks(DEFAULT_RANKS)
-    mapping = load_seqid_taxid_mapping(refpack.mapping)
+    with span("pipeline.taxonomy"):
+        tax = refpack.load_taxonomy()
+        tax_pruned = tax.prune_to_marked_ranks(DEFAULT_RANKS)
+        mapping = load_seqid_taxid_mapping(refpack.mapping)
 
     # stage 0 (protein): ORF calling (binning-blast-protein.bash:84)
     orf_tool = None
@@ -330,8 +335,10 @@ def run_binning_workflow(
     aln_path = os.path.join(outdir, SAMPLE_NAME + ".alignments.gz")
     if alignments_file:
         src_open = gzip.open if alignments_file.endswith(".gz") else open
-        with src_open(alignments_file, "rt") as src, gzip.open(aln_path, "wt") as dst:
-            shutil.copyfileobj(src, dst)
+        with span("pipeline.archive"):
+            with src_open(alignments_file, "rt") as src, \
+                    gzip.open(aln_path, "wt") as dst:
+                shutil.copyfileobj(src, dst)
     else:
         tmp = os.path.join(outdir, SAMPLE_NAME + ".alignments.tmp")
         if aligner_kind == "last":
@@ -353,8 +360,9 @@ def run_binning_workflow(
     # token of the header, and a .fai is written next to the input FASTA —
     # both intentional reference-parity changes from the old in-memory
     # full-header keying.
-    query_store = IndexedFastaStore(input_fasta)
-    db_store = IndexedFastaStore(refpack.refdata, refpack.refdata_index)
+    with span("pipeline.stores"):
+        query_store = IndexedFastaStore(input_fasta)
+        db_store = IndexedFastaStore(refpack.refdata, refpack.refdata_index)
 
     def resolved():
         with gzip.open(aln_path, "rt") as fh:
@@ -394,11 +402,14 @@ def run_binning_workflow(
                 [sort_exe, "-k1,1", "-T", outdir],
                 stdin=subprocess.PIPE, stdout=fh, text=True, env=env,
             )
+            rsets = iter_record_sets(resolved(), True, False)
             try:
-                engine.run(iter_record_sets(resolved(), True, False), proc.stdin)
+                with span("pipeline.engine"):
+                    engine.run(rsets, proc.stdin)
             finally:
-                proc.stdin.close()
-                rc = proc.wait()
+                with span("pipeline.sort"):
+                    proc.stdin.close()
+                    rc = proc.wait()
             if rc != 0:
                 raise TaxtkError(f"sort failed with exit code {rc}")
         else:
@@ -408,7 +419,8 @@ def run_binning_workflow(
     binning_path = os.path.join(outdir, SAMPLE_NAME + ".binning")
     input_filename = os.path.basename(input_fasta)
     regex = glob_regex or ("([^_]+)_.*" if protein else "(.+)")
-    with open(gff3_path) as src, open(binning_path, "w") as dst:
+    with span("pipeline.binner"), open(gff3_path) as src, \
+            open(binning_path, "w") as dst:
         run_binner(
             tax_pruned,
             [src],
@@ -418,7 +430,9 @@ def run_binning_workflow(
         )
 
     # stage 4: summaries
-    paths = binning_to_summary(tax_pruned, binning_path, SAMPLE_NAME, outdir)
+    with span("pipeline.summaries"):
+        paths = binning_to_summary(tax_pruned, binning_path, SAMPLE_NAME,
+                                   outdir)
     paths.update(alignments=aln_path, gff3=gff3_path, binning=binning_path)
     if orf_tool is not None:
         paths.update(orfs=input_fasta, orf_tool=orf_tool)

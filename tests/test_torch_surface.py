@@ -48,6 +48,9 @@ NAMES = {
     ("engine/aligner.py", "BatchAligner._myers_sharded"): (
         "BatchAligner._dispatch_mesh", "a bare mesh spreads its pairs "
         "over the grid's cells as an engine mesh does"),
+    ("engine/aligner.py", "BatchAligner._tick"): (
+        "BatchAligner._stage", "the stage stopwatch, now a span of "
+        "engine/metrics.py's recorder summed into stage_seconds"),
     ("engine/aligner.py", "BatchAligner._warn_fallback"): (
         None, "warns of a Pallas fallback; the port has no fallback"),
     ("engine/aligner.py", "_default_dna_backend"): (
