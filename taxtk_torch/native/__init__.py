@@ -2,9 +2,13 @@
 
 Native (C++) host runtime components, loaded via ctypes.
 
-Built on demand with g++ (no pip deps).  Provides:
+Built on demand with g++ (no pip deps) into one library from `_SRCS`:
+`myers.cpp` and `protein.cpp` are copies of taxtk/native's; `pack.cpp` is
+the port's own, with no taxtk original.  Provides:
   * Myers bit-vector edit distance (single pair + batch) — the CPU baseline
     the TPU kernels are benchmarked against, and a host aligner fallback.
+  * `taxtk_pack_text_pool`, the sequence pool's wire layout packed in one
+    pass (pack.cpp; wrapped by ops/host.py::_pack_text_pool).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import numpy as np
 
 _HERE = os.path.dirname(__file__)
 _LIB_PATH = os.path.join(_HERE, "libtaxtk_native.so")
-_SRCS = [os.path.join(_HERE, "myers.cpp"), os.path.join(_HERE, "protein.cpp")]
+_SRCS = [os.path.join(_HERE, n) for n in ("myers.cpp", "protein.cpp", "pack.cpp")]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
@@ -95,6 +99,16 @@ def load() -> Optional[ctypes.CDLL]:
             ]
         except AttributeError:  # pragma: no cover - stale .so
             pass
+        lib.taxtk_pack_text_pool.restype = ctypes.c_int
+        lib.taxtk_pack_text_pool.argtypes = [
+            ctypes.c_void_p,  # const uint8_t* const* rows
+            ctypes.c_void_p,  # const int64_t* lens
+            ctypes.c_int64,
+            ctypes.c_int,
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.c_void_p,  # uint8_t* out
+        ]
         try:
             lib.taxtk_protein_nw_traceback.restype = ctypes.c_int
             lib.taxtk_protein_nw_traceback.argtypes = [

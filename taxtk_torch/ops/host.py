@@ -6,12 +6,16 @@ taxtk: `_pow2`, `_dedupe_pool`, `_pool_indices`, `_build_pool_wire` and
 taxtk/ops/pallas_myers_systolic.py.  `_pack_systolic` drops the
 TPU's text chunk and its quarter-octave chunk ladder (compile-shape
 measures; the CUDA kernels take lengths at run time), so its text extent
-is the steps the pairs need, rounded to whole trips.
+is the steps the pairs need, rounded to whole trips.  `_pack_text_pool`
+keeps taxtk's function and wraps the port's own C++ pass
+(native/pack.cpp) in place of taxtk's numpy passes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 ALPHA = 5  # DNA5
 WORD = 32
@@ -110,25 +114,37 @@ def _pack_text_pool(rows, lens, txt_used, Np, Up, bits=4):
     bits=2 pad is inert).  Only entries used as a text (txt_used mask) are
     materialized; pattern-only entries stay all-pad.
 
-    Packing is one vectorized pass over a sentinel-padded row matrix (a
-    per-row Python pack loop was a top host cost in the warm e2e profile);
-    per-row work is just the ragged copy."""
+    The packing is one pass of the port's host C++
+    (`native/pack.cpp::taxtk_pack_text_pool`) straight into the wire
+    layout; here only each used row's pointer and length are gathered.
+    Raises ValueError where a used row needs more than Np codes or Up is
+    below the row count."""
+    lib = native.load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
     U = len(rows)
     cpb = 8 // bits
-    sent = (1 << bits) - 1
-    packed = np.full((Np // cpb, Up), 0xFF, np.uint8)
-    use = [u for u in range(U) if txt_used[u]]
-    if not use:
-        return packed.view(np.int8)
-    nbmax = max(1, -(-max(int(lens[u]) for u in use) // cpb))
-    mat = np.full((len(use), nbmax * cpb), sent, np.uint8)
-    for j, u in enumerate(use):
+    lens_c = np.zeros(U, np.int64)
+    ptrs = np.zeros(U, np.uintp)
+    keep = []  # rows copied to contiguous uint8, alive through the call
+    for u in np.flatnonzero(np.asarray(txt_used, bool)[:U]):
         L = int(lens[u])
-        np.minimum(rows[u][:L], sent, out=mat[j, :L])
-    merged = mat[:, 0::cpb].copy()
-    for f in range(1, cpb):
-        merged |= mat[:, f::cpb] << (bits * f)
-    packed[:nbmax, use] = merged.T
+        if not L:
+            continue
+        r = rows[u]
+        if r.dtype != np.uint8 or r.strides[0] != 1:
+            r = np.ascontiguousarray(r[:L], np.uint8)
+            keep.append(r)
+        if len(r) < L:
+            raise ValueError(f"row {u} holds {len(r)} codes, not {L}")
+        lens_c[u] = L
+        ptrs[u] = r.ctypes.data
+    packed = np.empty((Np // cpb, Up), np.uint8)
+    if lib.taxtk_pack_text_pool(ptrs.ctypes.data, lens_c.ctypes.data, U,
+                                bits, Np // cpb, Up, packed.ctypes.data):
+        raise ValueError(f"cannot pack {U} rows of up to "
+                         f"{int(lens_c.max(initial=0))} codes at {bits} bits "
+                         f"into [{Np // cpb}, {Up}]")
     return packed.view(np.int8)
 
 

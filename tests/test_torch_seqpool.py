@@ -54,6 +54,34 @@ def test_ensure_sequence_matches_taxtk():
     assert port.misses > 0 and port.hits > 0
 
 
+def test_pool_at_kernel2_shape_matches_taxtk():
+    """Rounds of 2-20 kbp rows at 2 bits into a tall (Hc 65,536) class, as
+    Kernel 2's appends: slots, hits, misses, bytes shipped and the pool's
+    columns equal taxtk's."""
+    rng = np.random.default_rng(19)
+    library = [rng.integers(0, 4, int(rng.integers(2_000, 20_001)))
+               .astype(np.uint8) for _ in range(400)]
+    ref = JaxPoolCache(budget_bytes=64 << 20)
+    port = DevicePoolCache("cpu", budget_bytes=64 << 20)
+    Hc = 65_536
+    for n in (150, 180, 300):
+        pick = rng.choice(len(library), n)
+        rows = [library[i] for i in pick]
+        keys = [(len(x), x.tobytes()) for x in rows]
+        lens = np.array([len(x) for x in rows], np.int32)
+        pool_r, slots_r = ref.ensure(2, Hc, keys, rows, lens)
+        pool_p, slots_p = port.ensure(2, Hc, keys, rows, lens)
+        np.testing.assert_array_equal(slots_p, slots_r)
+        assert (port.hits, port.misses, port.bytes_shipped) == (
+            ref.hits, ref.misses, ref.bytes_shipped)
+        used = ref.pools[(2, Hc)].n_used
+        assert port.pools[(2, Hc)].n_used == used
+        np.testing.assert_array_equal(pool_p[:, :used].numpy(),
+                                      np.asarray(pool_r)[:, :used])
+    assert port.resets == ref.resets == 0
+    assert port.hits > 0 and port.misses > 0
+
+
 def test_budget_reset_and_growth():
     """Growth doubles the capacity and keeps every committed column;
     exceeding the budget resets wholesale and re-ships into a fresh pool."""
