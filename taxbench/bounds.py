@@ -10,6 +10,8 @@ two is the bound: the same work, whatever implements it.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -44,6 +46,15 @@ def myers_bound_s(a_len, b_len, bits, int_rate):
     nbytes = float((-(-n // (8 // bits))).sum() + (words * 5 * 4).sum()
                    + len(m) * 5 * 4)
     return max(ops_s, nbytes / MEM_RATE)
+
+
+def template_args(launch):
+    """The integer template arguments of a launched kernel's name in the
+    profiler's trace: (2, 3) of `void myers_systolic_kernel<2, 3>(...)`."""
+    m = re.search(r"<([-\d,\s]+)>", launch)
+    if m is None:
+        raise ValueError(f"no template arguments in the launch {launch!r}")
+    return tuple(int(x) for x in m.group(1).split(","))
 
 
 def swar_fits(M, N):

@@ -20,7 +20,6 @@ import json
 import os
 import sys
 from collections import namedtuple
-from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
@@ -35,8 +34,6 @@ Value = namedtuple("Value", "distance similarity")
 def reference_in_place(files, contigs, config, device):
     """Each align round of the engine ends with the control's value in
     every key that a checked contig's task asked for."""
-    from taxtk_torch.engine.executor import RpaEngine
-
     values = Reference(files, config["protein"], device=device,
                        control="bfloat16",
                        exclude_factor=config["exclude_factor"],
@@ -45,18 +42,15 @@ def reference_in_place(files, contigs, config, device):
                        majority=config["binner_majority"]
                        ).check(contigs)["pairs"]
     checked = set(contigs)
-    real = RpaEngine._align_round
 
-    def align_round(engine, tasks, caches, pair_caches, reqs):
-        result = yield from real(engine, tasks, caches, pair_caches, reqs)
-        for ti, task in enumerate(tasks):
+    def fill(args):
+        for ti, task in enumerate(args["tasks"]):
             if task.qid in checked:
-                for key in reqs[ti]:
-                    pair_caches[ti][key] = Value(
+                for key in args["reqs_per_task"][ti]:
+                    args["pair_caches"][ti][key] = Value(
                         *values[run.reference_key(task, key)])
-        return result
 
-    with mock.patch.object(RpaEngine, "_align_round", align_round):
+    with run.around_align_round(after=fill):
         yield
 
 

@@ -5,7 +5,8 @@ has nothing for it to read; the harness then leaves the metric out.  ctx
 holds the window's samples (each with its wall, its stages' seconds, the
 aligner's stage seconds, the pool's counters and its query size in bases
 or residues), the window's length, the window's device peak, the device
-trace (or None) and each roofline's recorded calls.
+trace (or None), each roofline's recorded calls and, in a traced run,
+the program's own spans and counters (spans.py).
 """
 
 from __future__ import annotations
@@ -34,12 +35,6 @@ def aligner_prep_s(sample):
         "collect", 0.0)
 
 
-def pipeline_s(sample):
-    """The sample's wall outside RpaEngine.run: the gzip archive, the
-    taxonomy, sort's finish, the binner and the summaries."""
-    return sample["wall_s"] - sample["stages"].get("engine", 0.0)
-
-
 def host_route_wait_s(sample):
     """How long the host C++ route (pairs above the device's caps) outlasted
     the device buckets of its round; None for a sample that sent no pair
@@ -49,14 +44,6 @@ def host_route_wait_s(sample):
     return sample["aligner"].get("host_long_wait", 0.0)
 
 
-def engine_host_s(sample):
-    """RpaEngine.run's span less the aligner's stages and its waits for the
-    card and the host C++ route: parse, grouping, replay, fetch and emit."""
-    a = sample["aligner"]
-    return (sample["stages"].get("engine", 0.0) - aligner_prep_s(sample)
-            - a.get("device_wait", 0.0) - a.get("host_long_wait", 0.0))
-
-
 def roofline_pct(ctx, kernel):
     """The window's bound time of a kernel's launches over their device
     time, in percent; None without a trace or without launches."""
@@ -64,14 +51,17 @@ def roofline_pct(ctx, kernel):
     if trace is None or roof is None:
         return None
     calls = roof["calls"]
-    times = [b - a for n, a, b in trace["intervals"] if roof["kernel"] in n]
-    if not calls or not times:
+    launches = [(n, b - a) for n, a, b in trace["intervals"]
+                if roof["kernel"] in n]
+    if not calls or not launches:
         return None
-    if len(calls) != len(times):
+    if len(calls) != len(launches):
         raise RuntimeError(f"{kernel}: {len(calls)} entry calls but "
-                           f"{len(times)} launches in the trace")
-    bound = sum(roof["bound_s"](c, ctx["card"]) for c in calls)
-    return 100.0 * bound / sum(times)
+                           f"{len(launches)} launches in the trace")
+    # one stream: the k-th launch in the trace is the k-th call's
+    bound = sum(roof["bound_s"](c, ctx["card"], n)
+                for c, (n, _) in zip(calls, launches))
+    return 100.0 * bound / sum(t for _, t in launches)
 
 
 def idle_pct(ctx):

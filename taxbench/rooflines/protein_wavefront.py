@@ -16,6 +16,6 @@ def record(a_codes, b_codes, a_len, b_len, *rest, **kw):
                 M=int(np.shape(a_codes)[1]), N=int(np.shape(b_codes)[1]))
 
 
-def bound_s(call, card):
+def bound_s(call, card, launch):
     return protein_bound_s(call["a_len"], call["b_len"], call["M"],
                            call["N"], card["int_rate"])

@@ -19,9 +19,9 @@ value of every pair RPA asks for, the GFF3 lines and the bins of contigs
 drawn from the seed, and every window sample's are compared with them.
 
 Every metric is read by taxbench/metrics/<name>.py; with --trace 1 the
-window also runs under torch.profiler (CUDA activity only) and each
-`<kernel>_roofline` metric's kernel is described by
-taxbench/rooflines/<kernel>.py.  The last line of standard output is one
+window also runs under torch.profiler (CUDA activity only), with the
+program's span recorder switched on, and each `<kernel>_roofline`
+metric's kernel is described by taxbench/rooflines/<kernel>.py.  The last line of standard output is one
 JSON object; the compared numbers and their limits also end standard
 error.
 """
@@ -34,14 +34,17 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import functools  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
+import inspect  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+import threading  # noqa: E402
 import traceback  # noqa: E402
 from collections import Counter  # noqa: E402
 from unittest import mock  # noqa: E402
@@ -182,9 +185,43 @@ class Spans:
             yield self
 
 
+ROUND_ARGS = ("tasks", "pair_caches", "reqs_per_task")
+
+
+@contextlib.contextmanager
+def around_align_round(before=None, after=None):
+    """Patches RpaEngine._align_round so that before(args) runs ahead of
+    each round and after(args) once it has filled its pair caches.  args
+    maps the round's parameters, bound by name through the real method's
+    signature, to what the call passed (the same objects: a hook may fill
+    `pair_caches` in place); the call itself goes on unchanged, so a
+    parameter that the method adds or moves passes through."""
+    from taxtk_torch.engine.executor import RpaEngine
+
+    real = RpaEngine._align_round
+    sig = inspect.signature(real)
+    missing = [n for n in ROUND_ARGS if n not in sig.parameters]
+    if missing:
+        raise RuntimeError("RpaEngine._align_round has no parameter "
+                           + ", ".join(missing))
+
+    @functools.wraps(real)
+    def align_round(*a, **kw):
+        args = sig.bind(*a, **kw).arguments
+        if before is not None:
+            before(args)
+        result = yield from real(*a, **kw)
+        if after is not None:
+            after(args)
+        return result
+
+    with mock.patch.object(RpaEngine, "_align_round", align_round):
+        yield
+
+
 class Capture:
     """Keeps, for the checked contigs, each RPA task, its pair cache and
-    every key its replay asked for, by wrapping RpaEngine._align_round;
+    every key its replay asked for, around RpaEngine._align_round;
     references only, read once the window has closed.  The replay reads
     only keys it asked for; a key is asked for in the order RPA aligns it,
     and the engine may serve it from the other order's value (its mirror
@@ -195,33 +232,47 @@ class Capture:
         self.tasks = []  # (task, its pair cache, the keys it asked for)
         self.seen = {}  # id -> a macro-batch's pair caches, kept alive
 
-    @contextlib.contextmanager
+    def _round(self, args):
+        tasks, pair_caches = args["tasks"], args["pair_caches"]
+        mine = self.seen.get(id(pair_caches))
+        if mine is None:
+            mine = [(ti, (task, pair_caches[ti], set()))
+                    for ti, task in enumerate(tasks)
+                    if task.qid in self.contigs]
+            self.seen[id(pair_caches)] = (pair_caches, mine)
+            self.tasks.extend(entry for _, entry in mine)
+        else:
+            mine = mine[1]
+        for ti, (_, _, keys) in mine:
+            keys.update(args["reqs_per_task"][ti])
+
     def active(self):
-        from taxtk_torch.engine.executor import RpaEngine
-
-        real = RpaEngine._align_round
-
-        def align_round(engine, tasks, caches, pair_caches, reqs):
-            mine = self.seen.get(id(pair_caches))
-            if mine is None:
-                mine = [(ti, (task, pair_caches[ti], set()))
-                        for ti, task in enumerate(tasks)
-                        if task.qid in self.contigs]
-                self.seen[id(pair_caches)] = (pair_caches, mine)
-                self.tasks.extend(entry for _, entry in mine)
-            else:
-                mine = mine[1]
-            for ti, (_, _, keys) in mine:
-                keys.update(reqs[ti])
-            return (yield from real(engine, tasks, caches, pair_caches,
-                                    reqs))
-
-        with mock.patch.object(RpaEngine, "_align_round", align_round):
-            yield self
+        return around_align_round(before=self._round)
 
     def take(self):
         out, self.tasks, self.seen = self.tasks, [], {}
         return out
+
+
+class ProgramSpans:
+    """The program's own spans and counters of a traced window: its
+    recorder (taxtk_torch/engine/metrics.py) switched on as the window
+    opens and off as it closes, and what it kept then, drained."""
+
+    def __init__(self):
+        self.kept = None
+
+    @contextlib.contextmanager
+    def active(self):
+        from taxtk_torch.engine import metrics
+
+        metrics.drain()  # nothing from before the window
+        metrics.start_tracing()
+        try:
+            yield self
+        finally:
+            metrics.stop_tracing()
+            self.kept = metrics.drain()
 
 
 class Recorder:
@@ -453,6 +504,9 @@ def run_cell(name, seed, seconds, trace, device="cuda", traffic=None,
             if fault is not None:
                 stack.enter_context(fault(files=files, contigs=contigs,
                                           config=config, device=device))
+            program = ProgramSpans()
+            if trace:
+                stack.enter_context(program.active())
             t_open = time.perf_counter()
             setup_s = t_open - T_START
             while True:
@@ -478,6 +532,11 @@ def run_cell(name, seed, seconds, trace, device="cuda", traffic=None,
                              aligner=rec["aligner"],
                              host_long_pairs=rec["host_long_pairs"]))))
                 spans.spans.append(("sample", t0, time.perf_counter()))
+                # what the sample left alive, the records kept for the
+                # check above all, leaves the collector's view as set-up's
+                # objects did: a full collection in a later sample would
+                # scan it all again, which no fresh process pays
+                gc.freeze()
                 if time.perf_counter() - t_open >= seconds:
                     break
             t_close = time.perf_counter()
@@ -502,7 +561,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", traffic=None,
         ctx = {"samples": samples, "window_s": window_s, "setup_s": setup_s,
                "parts": parts, "cold_sample_s": parts["cold_sample_s"],
                "peak_window_bytes": peak_window, "card": card,
-               "trace": None, "rooflines": {}}
+               "trace": None, "rooflines": {}, "program": program.kept}
         breakdown = None
         if dtrace is not None:
             ivals = dtrace.window(t_open, t_close)
@@ -510,7 +569,10 @@ def run_cell(name, seed, seconds, trace, device="cuda", traffic=None,
             ctx["trace"] = {"intervals": ivals, "busy_s": busy,
                             "window_s": window_s}
             device_info.update(busy_s=busy, window_s=window_s)
-            breakdown = make_breakdown(ivals, spans.spans, t_open, t_close)
+            breakdown = make_breakdown(
+                ivals, spans.spans, t_open, t_close,
+                program.kept["spans"],
+                threading.current_thread().name)
         for r in recorders:
             ctx["rooflines"][r.kernel] = {"calls": r.calls,
                                           "kernel": r.spec.KERNEL,
@@ -530,6 +592,7 @@ def run_cell(name, seed, seconds, trace, device="cuda", traffic=None,
         from taxtk_torch.ops.seqpool import reset_shared_pools
 
         reset_shared_pools()
+        gc.unfreeze()
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
@@ -583,19 +646,24 @@ def run_cell(name, seed, seconds, trace, device="cuda", traffic=None,
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def make_breakdown(intervals, spans, t0, t1):
+def make_breakdown(intervals, spans, t0, t1, program=(), thread=None):
     """The device operations that took most time, and the longest idle
-    gaps, each named by the innermost harness span the host was in."""
+    gaps, each named by the innermost span the program kept on `thread`
+    (the one that runs the workflow and the engine) at the gap's middle,
+    or where it kept none there, by the innermost harness span."""
     from taxbench.trace import DeviceTrace, short_name
 
     by_op = Counter()
     for n, a, b in intervals:
         by_op[short_name(n)] += b - a
     gaps = DeviceTrace.gaps(intervals, t0, t1)
+    mine = [(s["name"], s["start"], s["end"]) for s in program
+            if s["thread"] == thread]
     named = []
     for a, b in sorted(gaps, key=lambda g: g[0] - g[1])[:10]:
         mid = (a + b) / 2
-        inner = [s for s in spans if s[1] <= mid <= s[2]]
+        inner = ([s for s in mine if s[1] <= mid <= s[2]]
+                 or [s for s in spans if s[1] <= mid <= s[2]])
         label = (min(inner, key=lambda s: s[2] - s[1])[0] if inner
                  else "harness")
         named.append([label, b - a])

@@ -2,17 +2,12 @@
 taxtk_torch/engine/metrics.py's recorder (pipeline_host_*, engine_*,
 entry_prep_*, h2d_*).
 
-The program keeps its spans and counters while a torch profiler traces the
-process, which it learns from torch's private flag
-torch.autograd.profiler._is_profiler_enabled.  In a `--trace 1` run on a
-card that is the harness's DeviceTrace (taxbench/trace.py), whose profiler
-covers the window's samples and nothing else; a torch without the flag
-fails such a run here rather than leave the readers empty.  The first
-reader takes what the recorder kept into ctx["program"]; the others read
-that copy.  Where the program kept nothing
-(a program without the recorder, or a run without the profiler), each
-reader returns None.  A span is a dict: name, start, end (seconds on
-time.perf_counter), id, parent, thread, run, batch, round, count.
+In a `--trace 1` run, run.py switches the recorder on as the window opens
+and off as it closes, and hands what it kept to the readers as
+ctx["program"]; an untraced run leaves the recorder off and ctx["program"]
+None, and each reader then returns None.  A span is a dict: name, start,
+end (seconds on time.perf_counter), id, parent, thread, run, batch, round,
+count.
 """
 
 from __future__ import annotations
@@ -24,21 +19,7 @@ H2D_BLOCKING = "h2d.blocking"  # the program's counter of blocking copies
 def window(ctx):
     """{"spans": [...], "counts": {...}} the program kept through the
     window, or None where it kept no span."""
-    if KEY not in ctx:
-        try:
-            from taxtk_torch.engine import metrics
-        except ImportError:
-            metrics = None
-        drain = getattr(metrics, "drain", None)
-        if drain is not None and ctx.get("trace") is not None:
-            from torch.autograd import profiler
-
-            if not hasattr(profiler, "_is_profiler_enabled"):
-                raise RuntimeError(
-                    "torch.autograd.profiler._is_profiler_enabled is gone: "
-                    "the program kept no span under the window's profiler")
-        ctx[KEY] = drain() if drain is not None else None
-    got = ctx[KEY]
+    got = ctx.get(KEY)
     return got if got and got["spans"] else None
 
 

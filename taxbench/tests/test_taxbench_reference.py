@@ -4,7 +4,7 @@ tiny sample on the CPU: the same realigned values, GFF3 lines and bins."""
 import numpy as np
 import pytest
 
-from tiny_mixes import TINY
+from tiny_mixes import PROTEIN_200, TINY
 from taxbench import ref_align, run
 
 
@@ -79,24 +79,54 @@ def test_port_matches_reference_on_cpu(cell):
     assert res["metrics"]["setup_s"]["value"] > 0
 
 
-def test_protein_mirror_fill_departs_from_reference():
-    """The engine's mirror fill serves a protein pair asked for in one order
-    from the value of the other order; taxator-tk aligns it in the order
-    asked.  At 200 ORFs the port departs from the reference on such pairs
-    (no GFF3 line or bin changes here), and with the mirror fill switched
-    off it agrees on every pair: the witness that keeps the protein cell
-    out of BENCHMARK.json until the program is mended."""
+def test_protein_reference_depends_on_order(tmp_path):
+    """taxator-tk realigns a protein pair in the order RPA asks for it, and
+    the alignment's statistics depend on that order: at the seeded
+    200-ORF sample, the reference's float32 distance or similarity of some
+    pair (a, b) differs from its swap (b, a), so no engine may serve one
+    order from the other's value."""
+    from taxbench import workload
+    from taxbench.reference import Reference
+
+    files = workload.make(PROTEIN_200, str(tmp_path / "data"), 2**31 + 11)
+    contigs = run.sample_contigs(files["alignments"], PROTEIN_200,
+                                 2**31 + 11)
+    pairs = Reference(files, True).check(contigs)["pairs"]
+
+    def bits(v):
+        return np.float32(v[0]).tobytes() + np.float32(v[1]).tobytes()
+
+    swapped = [(k, k[:3] + (k[4], k[3])) for k in pairs if k[4] is not None]
+    assert swapped and all(s in pairs for _, s in swapped)
+    assert any(bits(pairs[k]) != bits(pairs[s]) for k, s in swapped)
+
+
+def test_capture_binds_the_round_by_name(monkeypatch):
+    """Capture and the witness read a round's tasks, pair caches and
+    requests by name through the real method's signature: a round with
+    its parameters reordered and one more added still passes every
+    argument through and is captured."""
+    from taxtk_torch.engine.executor import RpaEngine
     from taxbench import witness
 
-    mix = {"generator": "protein_sample",
-           "params": {"orfs": 200, "min_len": 60, "max_len": 400},
-           "check": TINY["protein-blast/protein-orf"]["check"]}
-    got = {}
-    for mirror in (True, False):
-        res = run.run_cell("protein-blast/protein-orf", 2**31 + 11, 0.1, 0,
-                           device="cpu", traffic=mix,
-                           fault=None if mirror else witness.no_mirror)
-        got[mirror] = {k: c["value"] for k, c in res["checks"].items()}
-    assert got[True]["pairs_differing"] > 0
-    assert got[False]["pairs_differing"] == 0
-    assert got[False]["pairs_compared"] == got[True]["pairs_compared"] > 0
+    seen = []
+
+    def align_round(self, extra, reqs_per_task, pair_caches, tasks, caches,
+                    flag=False):
+        seen.append((extra, flag, type(pair_caches[0]).__name__))
+        pair_caches[0][("s", 0, 1)] = 7
+        pair_caches[0].setdefault(("s", 1, 0), 7)
+        yield "finish"
+
+    monkeypatch.setattr(RpaEngine, "_align_round", align_round)
+    task = type("Task", (), {"qid": "c1"})()
+    caches = [{}]
+    capture = run.Capture(["c1"])
+    with capture.active(), witness.no_mirror():
+        gen = RpaEngine._align_round(None, "x", [[("s", 0, 1)]], caches,
+                                     [task], ["seg"], flag=True)
+        assert list(gen) == ["finish"]
+    assert seen == [("x", True, "Unmirrored")]
+    [(got_task, cache, keys)] = capture.take()
+    assert got_task is task and keys == {("s", 0, 1)}
+    assert cache == {("s", 0, 1): 7}

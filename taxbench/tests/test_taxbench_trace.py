@@ -1,9 +1,8 @@
 """The metrics read from the program's own spans: each reader on a
-hand-built window, and a CPU run of the cell with the program's recorder
-kept on through the window, as the card's profiler keeps it in a traced
-run."""
+hand-built window, a traced CPU run of the cell, which keeps the
+program's recorder on through its window, and the breakdown's names of
+the idle gaps."""
 
-import contextlib
 import importlib.util
 import os
 
@@ -93,23 +92,11 @@ def test_span_readers(name):
         assert no_copy is not None
 
 
-@contextlib.contextmanager
-def _kept(**_):
-    """The program's recorder on through the window, as the card's
-    profiler (DeviceTrace) has it in a traced run."""
-    from taxtk_torch.engine import metrics
-
-    metrics.drain()
-    metrics.start_tracing()
-    try:
-        yield
-    finally:
-        metrics.stop_tracing()
-
-
 def test_traced_cpu_run_reports_span_metrics():
+    """A traced run switches the program's recorder on through the window,
+    on the CPU as on a card."""
     res = run.run_cell("dna-long", 2**31 + 3, 0.1, 1, device="cpu",
-                       traffic=TINY["dna-long"], fault=_kept)
+                       traffic=TINY["dna-long"])
     assert res["correct"]
     got = set(res["metrics"])
     assert set(SPAN_METRICS) - H2D <= got
@@ -119,21 +106,55 @@ def test_traced_cpu_run_reports_span_metrics():
 
 
 def test_runs_leave_the_recorder_alone(monkeypatch):
-    """Neither an untraced run nor a traced one on the CPU (no profiler)
-    switches the recorder on or leaves a span in it."""
+    """An untraced run never switches the recorder on; a traced one
+    switches it off as its window closes and leaves no span in it."""
     from taxtk_torch.engine import metrics
 
-    def refuse(*a, **kw):
-        raise AssertionError("the recorder was switched on")
+    real = metrics.start_tracing
+    calls = []
 
-    monkeypatch.setattr(metrics, "start_tracing", refuse)
+    def start(*a, **kw):
+        calls.append(trace)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(metrics, "start_tracing", start)
     metrics.drain()
     for trace in (0, 1):
         res = run.run_cell("dna-long", 2**31 + 3, 0.1, trace, device="cpu",
                            traffic=TINY["dna-long"])
         assert res["correct"]
-        assert not set(SPAN_METRICS) & set(res["metrics"])
+        assert bool(set(SPAN_METRICS) & set(res["metrics"])) == bool(trace)
         assert not metrics.RECORDER.on
         assert metrics.drain() == {"spans": [], "counts": {}}
+    assert calls == [1]
 
 
+def test_breakdown_names_gaps_by_the_program_spans():
+    """Each idle gap takes the innermost span the program kept on the
+    workflow's thread at the gap's middle; other threads' spans do not
+    count, and where the program kept none there the harness's span
+    names it."""
+    intervals = [("k", 1.0, 2.0), ("k", 3.0, 4.0), ("k", 6.0, 9.5)]
+    harness = [("sample", 0.0, 10.0), ("engine", 0.7, 9.8)]
+
+    def span(name, a, b, thread="MainThread"):
+        return dict(name=name, start=a, end=b, thread=thread)
+
+    program = [span("pipeline.engine", 0.6, 9.8),
+               span("engine.wait_round", 2.0, 3.0),
+               span("aligner.host_long", 2.0, 3.0, thread="taxtk-host-long"),
+               span("engine.fetch", 4.5, 6.0),
+               span("aligner.device", 5.0, 5.8)]
+    got = run.make_breakdown(intervals, harness, 0.0, 10.0, program,
+                             "MainThread")
+    # gaps, longest first: [4, 6] (middle 5: device), [0, 1] (no program
+    # span: the harness's sample), [2, 3] (wait_round, not the host
+    # route's thread), [9.5, 10] (pipeline.engine)
+    assert got["idle_gaps"] == [["aligner.device", 2.0], ["sample", 1.0],
+                                ["engine.wait_round", 1.0],
+                                ["pipeline.engine", 0.5]]
+    assert got["device_ops"] == [["k", 5.5]]
+    # without the program's spans, the harness's name every gap
+    assert [g[0] for g in run.make_breakdown(
+        intervals, harness, 0.0, 10.0)["idle_gaps"]] == [
+        "engine", "sample", "engine", "engine"]

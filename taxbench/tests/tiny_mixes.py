@@ -1,5 +1,6 @@
 """Tiny mixes of each configuration, for runs on the CPU: every contig
-is checked."""
+is checked.  PROTEIN_200 is the smallest protein sample whose seed
+2**31 + 11 has pairs whose two orders align to different values."""
 
 ALL = {"pairs": 10**9, "classes": [[1, 10**9]]}
 TINY = {
@@ -11,3 +12,6 @@ TINY = {
         "params": {"orfs": 24, "min_len": 60, "max_len": 160},
         "check": ALL},
 }
+PROTEIN_200 = {"generator": "protein_sample",
+               "params": {"orfs": 200, "min_len": 60, "max_len": 400},
+               "check": ALL}

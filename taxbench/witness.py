@@ -18,11 +18,9 @@ mirror fill that agrees with it, places the fault in the mirror fill.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
-from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
@@ -38,20 +36,15 @@ class Unmirrored(dict):
         return self.get(key, default)
 
 
-@contextlib.contextmanager
 def no_mirror(**_):
-    from taxtk_torch.engine.executor import RpaEngine
-
-    real = RpaEngine._align_round
-
-    def align_round(engine, tasks, caches, pair_caches, reqs):
-        for ti, cache in enumerate(pair_caches):
+    """Every pair cache of a round stores nothing under the other order."""
+    def unmirror(args):
+        caches = args["pair_caches"]
+        for ti, cache in enumerate(caches):
             if not isinstance(cache, Unmirrored):
-                pair_caches[ti] = Unmirrored(cache)
-        return (yield from real(engine, tasks, caches, pair_caches, reqs))
+                caches[ti] = Unmirrored(cache)
 
-    with mock.patch.object(RpaEngine, "_align_round", align_round):
-        yield
+    return run.around_align_round(before=unmirror)
 
 
 def main(argv=None):
